@@ -6,19 +6,38 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   — compile every kernel of the main path from the sources
-               (K1: isdf_torch/csrc/sweep_warm.cu) and print the seconds;
+  1. build   — compile every kernel from the sources (K1, K2 and K4:
+               isdf_torch/csrc/sweep_warm.cu, one library per body-SDF kind,
+               all nvcc processes started together) and print the seconds;
   2. kernels — hold each kernel against its plain PyTorch version on the card
-               (K1 against sweep_warm_fused_ref for RoundedCone (posed), Ball
+               and time both with CUDA events:
+               K1 against sweep_warm_fused_ref for RoundedCone (posed), Ball
                and CappedCone, at the slice's size, at the JAX bench's size
-               and at the audit's two sizes) and time both with CUDA events;
+               and at the audit's two sizes, and for the other 17 zoo shapes
+               at the slice's size;
+               K2 against sweep_warm_fused_batched_ref and against K1
+               launched per scenario, at B = 64 × P = 512, for CappedCone,
+               CSG and Trefoil; then against its plain version and timed at
+               the shapes the batched solves launch it at: warm at B = 128
+               (every scenario) and B = 4096 (five scenarios), and cold at
+               the audit's coarse_n = 512 at B = 128;
+               K4 against zoom_refine_ref at the slice's size;
   3. plan    — PlannerManager.plan on the demo-1 scene (RoundedCone body,
                procedural map4), with the launch counters set to 0 just
-               before the plan and read just after.
-With ``--profile`` it then plans once more under torch.profiler and prints
-the device's busy share of that plan.  Then it prints the card's name and
-power limit, one JSON line with the kernels' numbers, and as the last line
-{"ok": true, "device": {...}}.
+               before the plan and read just after; then zoom_refine (K4,
+               which nothing in the package calls) on the audit's argmin
+               times at the plan's voxels, its counter set to 0 just before,
+               held against zoom_refine_ref on the same tensors;
+  4. batch   — the scenario-batched back end (isdf_torch.parallel.batch) at
+               the width the JAX bench runs it (CappedCone, N = 4 pieces,
+               P = 512 points, max_iters = 24, chunk = 8): make_random_batch
+               and batched_solve_chunked at B = 128 and B = 4096,
+               batched_solve_audited at B = 128; the launch counters are set
+               to 0 just before the B = 128 solve and read just after.
+With ``--profile`` it then plans once more under torch.profiler and solves the
+B = 4096 batch once more under it, and prints the device's busy share of
+each.  Then it prints the card's name and power limit, one JSON line with the
+kernels' numbers, and as the last line {"ok": true, "device": {...}}.
 Without a CUDA card, or without the package beside it, it exits non-zero
 and prints no result.
 """
@@ -34,7 +53,8 @@ import time
 
 import numpy as np
 
-# K1's tolerance against its plain version (both float32 on the card).  The
+# The sweep kernels' tolerance against their plain versions (both float32 on
+# the card).  The
 # band stays for rounding differences: the gradient comes from dual numbers in
 # the kernel and from autograd in the plain version, and a one-ulp change of
 # an SDF value at a near-tie can move t* to a neighbouring candidate of equal
@@ -80,6 +100,17 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+# the kernel phase runs every case before it fails, so one run shows every
+# case outside its band
+KERNEL_FAILURES = []
+
+
+def check_kernel(cond: bool, what: str) -> None:
+    if not cond:
+        print("kernel check failed: " + what, flush=True)
+        KERNEL_FAILURES.append(what)
+
+
 # ---------------------------------------------------------------------------
 # K1 operation count, per query point, read off isdf_torch/csrc/sweep_warm.cu:
 # every FP32 add/sub/mul/div/sqrt/rsqrt/min/max/abs is one operation (an FMA
@@ -90,12 +121,36 @@ OPS_REL = 18                         # Rᵀ(p − x)
 OPS_CAND = 4                         # t + w·off, clip to [0, total]
 OPS_PLATEAU = 22                     # min, tie band, run mean, window shrink
 OPS_POSED = 18                       # poly_params pose transform
-# body SDFs; RoundedCone counts its cheapest branch, a lower bound
-OPS_SDF = {"Ball": 8, "RoundedCone": 12, "CappedCone": 49}
+# body SDFs by kind id (isdf_torch/shapes/spec.py), counted from the device
+# functions; where a function branches, its cheapest branch (a lower bound);
+# cos, sin, atan2, floor and sqrt count one each
+OPS_SDF = {
+    1: 8,     # Ball: n3 (3 mul, 3 add, sqrt) + sub
+    2: 12,    # RoundedCone
+    3: 49,    # CappedCone
+    4: 12,    # Torus: two n2 (5) + 2 sub
+    5: 17,    # Cappedtorus: abs, 2 compare products, 3 (linear branch), psq 5,
+              #   6 for the root
+    6: 62,    # WireframeBox: 18 for ps/q, 3 × 14 for g, 2 min
+    7: 44,    # BendLinear: t 11, ease 2 (first branch), shift 6, capsule 25
+    8: 29,    # TwistBox: k·z, cos, sin, rotation 6, box 20
+    9: 29,    # BendBox
+    10: 49,   # Table: 2 abs, 6 sub, 2 boxes, min
+    11: 83,   # Blobby: 4 balls (11) + 3 smooth unions (13)
+    12: 47,   # Trefoil
+    13: 41,   # SmoothDifference/SmoothIntersection: box 20, ball 8, blend 13
+    14: 51,   # CSG: ball 8, box 20, 3 cylinders (6), 2 min, 2 max, neg
+    15: 20,   # Box
+    16: 7,    # Point
+}
+
+
+def sdf_ops(shape) -> int:
+    return OPS_SDF[shape.spec.kind] + (OPS_POSED if shape.spec.posed else 0)
 
 
 def k1_ops_per_query(shape, coarse_n: int, rounds: int, k: int = 8) -> int:
-    sdf = OPS_SDF[shape.name] + (OPS_POSED if shape.spec.posed else 0)
+    sdf = sdf_ops(shape)
     scan = coarse_n * (OPS_REL + sdf)
     zooms = 2 * rounds * (k * (OPS_CAND + OPS_PVAJ + OPS_POSE + OPS_REL + sdf)
                           + OPS_PLATEAU)
@@ -103,15 +158,33 @@ def k1_ops_per_query(shape, coarse_n: int, rounds: int, k: int = 8) -> int:
     return scan + zooms + epilogue + 3
 
 
-def k1_bound_ms(shape, P: int, N: int, coarse_n: int, rounds: int):
-    """(bound ms, "operations" or "bytes"): the larger of the FP32 work over
-    the FP32 non-tensor peak and the bytes (each input read once, each output
-    written once) over the memory rate."""
-    ops = P * k1_ops_per_query(shape, coarse_n, rounds)
-    nbytes = 4 * (P * (3 + 1) + coarse_n * 12 + N * (2 + 18)) + 4 * P * 5
+def k4_ops_per_query(shape, rounds: int, k: int = 8) -> int:
+    return rounds * (k * (OPS_CAND + OPS_PVAJ + OPS_POSE + OPS_REL
+                          + sdf_ops(shape)) + OPS_PLATEAU)
+
+
+def bound_ms(ops: int, nbytes: int):
+    """(bound ms, "operations" or "bytes", ops, bytes): the larger of the
+    FP32 work over the FP32 non-tensor peak and the bytes (each input read
+    once, each output written once) over the memory rate."""
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def k1_bound_ms(shape, P: int, N: int, coarse_n: int, rounds: int,
+                B: int = 1):
+    """K1's bound, and K2's with B scenarios: the same work per query, and
+    every scenario's own pose table and piece tables read once."""
+    ops = B * P * k1_ops_per_query(shape, coarse_n, rounds)
+    nbytes = B * (4 * (P * (3 + 1) + coarse_n * 12 + N * (2 + 18))
+                  + 4 * P * 5)
+    return bound_ms(ops, nbytes)
+
+
+def k4_bound_ms(shape, P: int, N: int, rounds: int):
+    return bound_ms(P * k4_ops_per_query(shape, rounds),
+                    4 * (P * (3 + 2) + N * (2 + 18)) + 4 * P)
 
 
 # ---------------------------------------------------------------------------
@@ -148,13 +221,13 @@ def kernel_inputs(torch, traj, params, pts, t_warm, coarse_n):
 
 
 def phase_kernels(dev):
-    """K1 against sweep_warm_fused_ref on the card → per-case records."""
+    """K1 against sweep_warm_fused_ref on the card → (per-case records, the
+    slice's (trajectory, points, warm starts))."""
     import torch
     from isdf_torch.config import Config
     from isdf_torch.core import flatness as fl, minco
     from isdf_torch.core.poly import PolyTraj
-    from isdf_torch.shapes import make_shape
-    from isdf_torch.sweep import fused_zoom
+    from isdf_torch.shapes import SHAPE_REGISTRY, make_shape
 
     rng = np.random.default_rng(0)
     # the slice's size: a demo-scale path (12 pieces from START to GOAL),
@@ -195,6 +268,7 @@ def phase_kernels(dev):
         ("CappedCone", Config()),
     ]
     records = []
+    slice_case = None
     for (size_name, (qq, TT, tl), pts_np, coarse_n, rounds, head,
          cold) in sizes:
         f32 = dict(dtype=torch.float32, device=dev)
@@ -209,48 +283,259 @@ def phase_kernels(dev):
         else:
             t_warm = torch.as_tensor(
                 rng.uniform(0, float(T.sum()), size=len(pts_np)), **f32)
-        for shape_name, conf in shapes:
+        if size_name == "slice":
+            slice_case = (traj, pts, t_warm)
+        cases = [(name, conf, 10) for name, conf in shapes]
+        if size_name == "slice":
+            # the other 17 zoo shapes, at the slice's size (fewer timing
+            # runs of the plain version: it takes ~0.1 s a run)
+            cases += [(name, Config(), 3) for name in SHAPE_REGISTRY
+                      if name not in dict(shapes)]
+        for shape_name, conf, plain_reps in cases:
             shape = make_shape(shape_name, conf)
             params = fl.FlatParams.from_config(conf)
             args = kernel_inputs(torch, traj, params, pts, t_warm, coarse_n)
             kw = dict(coarse_n=coarse_n, rounds=rounds, warm_window=0.3)
-            tk, dk, gk = fused_zoom.sweep_warm_fused(shape, params, *args, **kw)
-            tr, dr, gr = fused_zoom.sweep_warm_fused_ref(shape, params, *args,
-                                                         **kw)
-            torch.cuda.synchronize()
-            for name, v in (("t*", tk), ("d*", dk), ("grad", gk)):
-                check(bool(torch.isfinite(v).all()),
-                      f"K1 {shape_name}/{size_name}: non-finite {name}")
-            dd = (dk - dr).abs()
-            d_ok = bool((dd <= D_ATOL + D_RTOL * dr.abs()).all())
-            agree = (tk - tr).abs() < T_AGREE
-            share = float(agree.float().mean())
-            g_err = float((gk - gr).abs()[agree].max()) if agree.any() else 0.0
-            ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused(
-                shape, params, *args, **kw))
-            plain_ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused_ref(
-                shape, params, *args, **kw))
-            bound, bound_by, ops, nbytes = k1_bound_ms(
-                shape, len(pts_np), T.shape[0], coarse_n, rounds)
-            rec = dict(size=size_name, shape=shape_name, P=len(pts_np),
-                       N=int(T.shape[0]), coarse_n=coarse_n, rounds=rounds,
-                       max_abs_d=float(dd.max()), t_share=share,
-                       max_abs_grad=g_err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound, bound_by=bound_by, ops=ops,
-                       bytes=nbytes)
-            records.append(rec)
-            print("K1 vs plain " + json.dumps(rec), flush=True)
-            check(d_ok, f"K1 {shape_name}/{size_name}: |Δd*| "
-                        f"{rec['max_abs_d']:.3g} outside the band")
-            check(share >= T_SHARE, f"K1 {shape_name}/{size_name}: only "
-                                    f"{share:.4f} of points agree on t*")
-            check(g_err <= G_ATOL, f"K1 {shape_name}/{size_name}: |Δgrad| "
-                                   f"{g_err:.3g} > {G_ATOL}")
+            records.append(hold_k1(shape, params, args, kw, size_name,
+                                   plain_reps))
+    return records, slice_case
+
+
+def in_bands(what, tk, dk, gk, tr, dr, gr):
+    """The sweep kernels' check against a plain version: finite results, d*
+    in its band everywhere, t* equal on ≥ T_SHARE of the points and the
+    gradient in its band there → (max |Δd*|, share, max |Δgrad|, checks)."""
+    import torch
+
+    for name, v in (("t*", tk), ("d*", dk), ("grad", gk)):
+        check(bool(torch.isfinite(v).all()), f"{what}: non-finite {name}")
+    dd = (dk - dr).abs()
+    d_ok = bool((dd <= D_ATOL + D_RTOL * dr.abs()).all())
+    agree = (tk - tr).abs() < T_AGREE
+    share = float(agree.float().mean())
+    g_err = float((gk - gr).abs()[agree].max()) if agree.any() else 0.0
+    checks = [
+        (d_ok, f"{what}: |Δd*| {float(dd.max()):.3g} outside the band"),
+        (share >= T_SHARE, f"{what}: only {share:.4f} of points agree on t*"),
+        (g_err <= G_ATOL, f"{what}: |Δgrad| {g_err:.3g} > {G_ATOL}"),
+    ]
+    return float(dd.max()), share, g_err, checks
+
+
+def hold_k1(shape, params, args, kw, size_name, plain_reps: int = 10):
+    """One K1 case against sweep_warm_fused_ref on the card → its record."""
+    import torch
+    from isdf_torch.sweep import fused_zoom
+
+    pts, durs = args[0], args[4]
+    what = f"K1 {shape.name}/{size_name}"
+    tk, dk, gk = fused_zoom.sweep_warm_fused(shape, params, *args, **kw)
+    tr, dr, gr = fused_zoom.sweep_warm_fused_ref(shape, params, *args, **kw)
+    torch.cuda.synchronize()
+    max_d, share, g_err, checks = in_bands(what, tk, dk, gk, tr, dr, gr)
+    ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused(
+        shape, params, *args, **kw))
+    plain_ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused_ref(
+        shape, params, *args, **kw), warmup=1, reps=plain_reps)
+    bound, bound_by, ops, nbytes = k1_bound_ms(
+        shape, pts.shape[0], durs.shape[0], kw["coarse_n"], kw["rounds"])
+    rec = dict(size=size_name, shape=shape.name, P=pts.shape[0],
+               N=durs.shape[0], coarse_n=kw["coarse_n"], rounds=kw["rounds"],
+               max_abs_d=max_d, t_share=share, max_abs_grad=g_err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, ops=ops,
+               bytes=nbytes)
+    print("K1 vs plain " + json.dumps(rec), flush=True)
+    for ok, msg in checks:
+        check_kernel(ok, msg)
+    return rec
+
+
+# the scenario-batched back end at the width the JAX bench runs it
+# (bench.py:69-72,151-190)
+BATCH_CONF = dict(integralIntervs=32, sweep_coarse_samples=64,
+                  sweep_refine_rounds=12, vmax=5.0, omgmax=5.0, thetamax=1.5,
+                  safety_hor=0.4, mem_size=8)
+BATCH_N, BATCH_P, BATCH_ITERS, BATCH_CHUNK = 4, 512, 24, 8
+AUDIT_COARSE_N = 512    # batched_solve_audited's audit_coarse_n
+COST_RISE = 1e-3    # band of a final cost above its scenario's first cost
+ALONE_RTOL = 1e-4   # band of a scenario solved alone against it in a batch
+
+
+def batched_kernel_inputs(torch, shape_name, B, dev, seed, coarse_n=None,
+                          cold=False):
+    """K2's inputs as the batched solve gives them: make_random_batch's
+    points and start trajectories (durations varied per scenario and piece,
+    as they are after a few iterations), random warm starts; with ``cold``
+    as the batched audit gives them (t_warm = 0, its own coarse_n)."""
+    from isdf_torch.config import Config
+    from isdf_torch.core import flatness as fl, minco
+    from isdf_torch.core.poly import PolyTraj
+    from isdf_torch.parallel import batch as pb
+    from isdf_torch.shapes import make_shape
+    from isdf_torch.sweep.sweep_sdf import traj_states
+
+    conf = Config(**BATCH_CONF)
+    shape = make_shape(shape_name, conf)
+    params = fl.FlatParams.from_config(conf)
+    sb = pb.make_random_batch(conf, B, N=BATCH_N, n_points=BATCH_P,
+                              seed=seed, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    T = sb.T0 * (0.6 + 0.8 * torch.rand(sb.T0.shape, generator=gen)).to(dev)
+    traj = PolyTraj(T, minco.solve(sb.q0, T, sb.head, sb.tail))
+    coarse_n = coarse_n or conf.sweep_coarse_samples
+    ts = torch.linspace(0.0, 1.0, coarse_n, device=dev) \
+        * traj.total_duration[:, None]
+    xs, Rs = traj_states(traj, params, ts)
+    pose = torch.cat([xs, Rs.flatten(-2)], dim=-1).contiguous()
+    t_warm = (torch.rand(sb.mask.shape, generator=gen).to(dev)
+              * traj.total_duration[:, None]).contiguous()
+    if cold:
+        t_warm = torch.zeros_like(t_warm)
+    starts = (torch.cumsum(T, -1) - T).contiguous()
+    kw = dict(coarse_n=coarse_n, rounds=conf.sweep_refine_rounds,
+              warm_window=0.3)
+    return shape, params, (sb.points.contiguous(), t_warm, pose, starts,
+                           T.contiguous(), traj.coeffs.contiguous()), kw
+
+
+def phase_k2(dev):
+    """K2 against its plain version and against per-scenario K1 launches at
+    B = 64, then against its plain version and timed at the three shapes the
+    batched solves launch it at → records."""
+    import torch
+    from isdf_torch.sweep import fused_zoom
+
+    records = []
+    for shape_name in ("CappedCone", "CSG", "Trefoil"):
+        shape, params, args, kw = batched_kernel_inputs(
+            torch, shape_name, 64, dev, seed=1)
+        what = f"K2 {shape_name}/B64"
+        tk, dk, gk = fused_zoom.sweep_warm_fused_batched(
+            shape, params, *args, **kw)
+        tr, dr, gr = fused_zoom.sweep_warm_fused_batched_ref(
+            shape, params, *args, **kw)
+        per = [fused_zoom.sweep_warm_fused(
+            shape, params, *(a[b] for a in args), **kw) for b in range(64)]
+        torch.cuda.synchronize()
+        t1, d1, g1 = (torch.stack(o) for o in zip(*per))
+        same = bool(torch.equal(tk, t1) and torch.equal(dk, d1)
+                    and torch.equal(gk, g1))
+        max_d, share, g_err, checks = in_bands(what, tk, dk, gk, tr, dr, gr)
+        rec = dict(shape=shape_name, B=64, P=BATCH_P, N=BATCH_N,
+                   max_abs_d=max_d, t_share=share, max_abs_grad=g_err,
+                   equals_per_scenario_k1=same)
+        records.append(rec)
+        print("K2 vs plain " + json.dumps(rec), flush=True)
+        check_kernel(same, f"{what}: differs from K1 launched per scenario")
+        for ok, msg in checks:
+            check_kernel(ok, msg)
+    # the shapes the batched solve launches K2 at: the warm sweep of a cost
+    # evaluation at B = 128 and B = 4096, and the audited solve's cold sweep
+    # (t_warm = 0, audit_coarse_n = 512: a 24 KB pose table per scenario,
+    # read from global memory) at B = 128
+    for label, B, coarse_n, cold in (("B128", 128, None, False),
+                                     ("B128/audit", 128, AUDIT_COARSE_N, True),
+                                     ("B4096", 4096, None, False)):
+        shape, params, args, kw = batched_kernel_inputs(
+            torch, "CappedCone", B, dev, seed=2, coarse_n=coarse_n, cold=cold)
+        what = f"K2 CappedCone/{label}"
+        tk, dk, gk = fused_zoom.sweep_warm_fused_batched(
+            shape, params, *args, **kw)
+        ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused_batched(
+            shape, params, *args, **kw))
+        # the plain version is a loop over the scenarios (~50 ms each): one
+        # timed run of all of them at B = 128, whose results are the ones
+        # compared; at B = 4096 the first, the last and three scenarios
+        # between, each through the single-scenario plain version
+        if B == 128:
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            tr, dr, gr = fused_zoom.sweep_warm_fused_batched_ref(
+                shape, params, *args, **kw)
+            b.record()
+            b.synchronize()
+            plain_ms, rows = a.elapsed_time(b), slice(None)
+        else:
+            rows = [0, B // 4, B // 2, 3 * B // 4, B - 1]
+            per = [fused_zoom.sweep_warm_fused_ref(
+                shape, params, *(x[i] for x in args), **kw) for i in rows]
+            tr, dr, gr = (torch.stack(o) for o in zip(*per))
+            plain_ms = None
+        torch.cuda.synchronize()
+        max_d, share, g_err, checks = in_bands(
+            what, tk[rows], dk[rows], gk[rows], tr, dr, gr)
+        bound, bound_by, ops, nbytes = k1_bound_ms(
+            shape, BATCH_P, BATCH_N, kw["coarse_n"], kw["rounds"], B=B)
+        rec = dict(shape="CappedCone", case=label, B=B, P=BATCH_P, N=BATCH_N,
+                   coarse_n=kw["coarse_n"], rounds=kw["rounds"], cold=cold,
+                   compared_scenarios=len(tr), max_abs_d=max_d,
+                   t_share=share, max_abs_grad=g_err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                   ops=ops, bytes=nbytes)
+        records.append(rec)
+        print("K2 vs plain, timed " + json.dumps(rec), flush=True)
+        for ok, msg in checks:
+            check_kernel(ok, msg)
+    return records
+
+
+def phase_k4(dev, slice_case):
+    """K4 against zoom_refine_ref at the slice's size (the K1 slice's
+    trajectory and points, rounds 12, windows 0.05–1 s): t* equal on
+    ≥ T_SHARE of the points, and the SDF at the two t* in d*'s band."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.core import flatness as fl
+    from isdf_torch.shapes import make_shape
+    from isdf_torch.sweep import fused_zoom
+    from isdf_torch.sweep.fast_eval import sdf_at_time_c
+
+    traj, pts, t_warm = slice_case
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    w0 = (0.05 + 0.95 * torch.rand(pts.shape[0], generator=gen)).to(dev)
+    durs = traj.durations.contiguous()
+    starts = (torch.cumsum(durs, 0) - durs).contiguous()
+    pw = (pts[:, 0], pts[:, 1], pts[:, 2])
+    records = []
+    for shape_name, conf in (("RoundedCone", Config(**DEMO1)),
+                             ("CappedCone", Config()), ("CSG", Config())):
+        shape = make_shape(shape_name, conf)
+        params = fl.FlatParams.from_config(conf)
+        args = (pts.contiguous(), t_warm.contiguous(), w0, starts, durs,
+                traj.coeffs.contiguous())
+        tk = fused_zoom.zoom_refine(shape, params, *args, rounds=12)
+        tr = fused_zoom.zoom_refine_ref(shape, params, *args, rounds=12)
+        with torch.no_grad():
+            dk = sdf_at_time_c(shape, traj, params, pw, tk)
+            dr = sdf_at_time_c(shape, traj, params, pw, tr)
+        torch.cuda.synchronize()
+        what = f"K4 {shape_name}/slice"
+        check(bool(torch.isfinite(tk).all()), f"{what}: non-finite t*")
+        share = float(((tk - tr).abs() < T_AGREE).float().mean())
+        dd = (dk - dr).abs()
+        ms = cuda_ms(lambda: fused_zoom.zoom_refine(
+            shape, params, *args, rounds=12))
+        plain_ms = cuda_ms(lambda: fused_zoom.zoom_refine_ref(
+            shape, params, *args, rounds=12), warmup=1, reps=5)
+        bound, bound_by, ops, nbytes = k4_bound_ms(
+            shape, pts.shape[0], durs.shape[0], 12)
+        rec = dict(shape=shape_name, P=pts.shape[0], N=durs.shape[0],
+                   rounds=12, t_share=share, max_abs_d=float(dd.max()),
+                   max_abs_t=float((tk - tr).abs().max()), ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                   ops=ops, bytes=nbytes)
+        records.append(rec)
+        print("K4 vs plain " + json.dumps(rec), flush=True)
+        check_kernel(share >= T_SHARE,
+                     f"{what}: only {share:.4f} of points agree on t*")
+        check_kernel(bool((dd <= D_ATOL + D_RTOL * dr.abs()).all()),
+                     f"{what}: SDF at t* differs by {float(dd.max()):.3g}")
     return records
 
 
 def phase_plan(dev):
-    """PlannerManager.plan on the demo-1 scene; returns (metrics, launches)."""
+    """PlannerManager.plan on the demo-1 scene → (metrics, K1 launches, the
+    manager, the trajectory)."""
     import torch
     from isdf_torch.config import Config
     from isdf_torch.plan import PlannerManager
@@ -305,30 +590,73 @@ def phase_plan(dev):
     print(f"plan: audit min swept SDF = {min_sdf!r}", flush=True)
     print(f"plan: K1 launches in the plan = {launches}", flush=True)
     check(launches > 0, "the plan never launched K1")
-    return m, launches, pm
+    return m, launches, pm, traj
 
 
-def phase_profile(pm) -> None:
-    """``--profile``: one more demo-1 plan (warm: A* already built) under
-    torch.profiler, tracing the card only → the device's busy share of the
-    plan's wall time, and K1's part of the busy time."""
+def phase_refine(pm, traj) -> int:
+    """K4 through its entry point, as a caller of ``zoom_refine`` uses it:
+    the argmin times the audit found at every occupied voxel near the
+    planned trajectory, refined once more in a ±0.05 s window.  The refined
+    times must not sit at a shallower SDF than the audit's (beyond 5e-3 m:
+    a plateau-centred pick may move along a plateau), and must agree with
+    zoom_refine_ref on the same tensors as in phase_k4.  → K4 launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from isdf_torch.sweep import fused_zoom
+    from isdf_torch.sweep.fast_eval import sdf_at_time_c
 
+    live, sdf, t_star = pm._audit_sdf(traj)
+    check(live is not None, "refine: no occupied voxel near the trajectory")
+    f32 = dict(dtype=torch.float32, device=pm.device)
+    pts = torch.as_tensor(live, **f32).contiguous()
+    t0 = torch.as_tensor(t_star, **f32).contiguous()
+    durs = traj.durations.detach().contiguous()
+    fused_zoom.LAUNCHES_ZOOM = 0
+    args = (pts, t0, torch.full_like(t0, 0.05),
+            (torch.cumsum(durs, 0) - durs).contiguous(), durs,
+            traj.coeffs.detach().contiguous())
+    t_ref = fused_zoom.zoom_refine(pm.shape, pm.params, *args, rounds=12)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pm.plan(np.asarray(START), np.asarray(GOAL), max_iters=MAX_ITERS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans, k1_ns = [], 0
+    launches = fused_zoom.LAUNCHES_ZOOM
+    t_plain = fused_zoom.zoom_refine_ref(pm.shape, pm.params, *args,
+                                         rounds=12)
+    pw = (pts[:, 0], pts[:, 1], pts[:, 2])
+    with torch.no_grad():
+        d_ref = sdf_at_time_c(pm.shape, traj.detach(), pm.params, pw, t_ref)
+        d_plain = sdf_at_time_c(pm.shape, traj.detach(), pm.params, pw,
+                                t_plain)
+    rise = float((d_ref - torch.as_tensor(sdf, **f32)).max())
+    share = float(((t_ref - t_plain).abs() < T_AGREE).float().mean())
+    dd = (d_ref - d_plain).abs()
+    print(f"refine: K4 on {len(live)} voxels, {launches} launch(es), "
+          f"max |Δt*| = {float((t_ref - t0).abs().max())!r}, largest rise "
+          f"of the SDF = {rise!r}; against its plain version: t* agrees on "
+          f"{share!r} of the voxels, max |ΔSDF at t*| = {float(dd.max())!r}",
+          flush=True)
+    check(bool(torch.isfinite(t_ref).all()), "refine: non-finite t*")
+    check(rise <= 5e-3, f"refine: the SDF rose by {rise:.3g}")
+    check(share >= T_SHARE,
+          f"refine: only {share:.4f} of voxels agree with the plain t*")
+    check(bool((dd <= D_ATOL + D_RTOL * d_plain.abs()).all()),
+          f"refine: SDF at t* differs from the plain version's by "
+          f"{float(dd.max()):.3g}")
+    check(launches > 0, "refine never launched K4")
+    return launches
+
+
+def device_busy(prof, wall: float, kernel_word: str) -> dict:
+    """Union of the device intervals a torch.profiler run recorded → the
+    device's busy share of `wall`, and the time in kernels whose name holds
+    `kernel_word`."""
+    import torch
+
+    spans, k_ns = [], 0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
         spans.append((e.start_ns(), e.end_ns()))
-        if "sweep_warm" in e.name():
-            k1_ns += e.end_ns() - e.start_ns()
-    busy, end = 0, None                  # union of the device intervals
+        if kernel_word in e.name():
+            k_ns += e.end_ns() - e.start_ns()
+    busy, end = 0, None
     for a, b in sorted(spans):
         if end is None or a > end:
             busy += b - a
@@ -337,12 +665,178 @@ def phase_profile(pm) -> None:
             busy += b - end
             end = b
     if not spans:
-        print("profile: the profiler recorded no device events; device "
-              "busy share not measured", flush=True)
-        return
-    print("profile: " + json.dumps(dict(
-        wall_s=wall, device_events=len(spans), device_busy_s=busy * 1e-9,
-        busy_share=busy * 1e-9 / wall, k1_s=k1_ns * 1e-9)), flush=True)
+        return {}
+    return dict(wall_s=wall, device_events=len(spans),
+                device_busy_s=busy * 1e-9, busy_share=busy * 1e-9 / wall,
+                sweep_kernel_s=k_ns * 1e-9)
+
+
+def phase_profile(pm, batch_case) -> None:
+    """``--profile``: one more demo-1 plan (warm: A* already built) and one
+    more B = 4096 batched solve, each under torch.profiler tracing the card
+    only → the device's busy share of each one's wall time, and the sweep
+    kernel's part of the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from isdf_torch.parallel import batch as pb
+
+    shape, conf, sb = batch_case
+    runs = (
+        ("plan", lambda: pm.plan(np.asarray(START), np.asarray(GOAL),
+                                 max_iters=MAX_ITERS)),
+        ("batch B=4096", lambda: pb.batched_solve_chunked(
+            shape, conf, sb, max_iters=BATCH_ITERS, chunk=BATCH_CHUNK)),
+    )
+    for label, run in runs:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = device_busy(prof, wall, "sweep_warm")
+        if not got:
+            print(f"profile {label}: the profiler recorded no device events;"
+                  " device busy share not measured", flush=True)
+        else:
+            print(f"profile {label}: " + json.dumps(got), flush=True)
+
+
+def phase_batch(dev):
+    """The scenario-batched back end on the card → (K2 launches of the
+    B = 128 solve, the B = 4096 case for ``--profile``)."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.parallel import batch as pb
+    from isdf_torch.shapes import make_shape
+    from isdf_torch.sweep import fused_zoom
+
+    conf = Config(**BATCH_CONF)
+    shape = make_shape("CappedCone", conf)
+    trips = 2 * BATCH_CHUNK + 8          # loop trips per chunk, 2 evals each
+    launches_main, big_case, small = None, None, None
+
+    def solve(sb, **kw):
+        chunks = [1]
+
+        def between(res):
+            chunks[0] += not bool(res.converged.all())
+
+        out = pb.batched_solve_chunked(
+            shape, conf, sb, max_iters=BATCH_ITERS, chunk=BATCH_CHUNK,
+            callback=between, **kw)
+        torch.cuda.synchronize()
+        return out, chunks[0]
+
+    for B in (128, 4096):
+        sb = pb.make_random_batch(conf, B, N=BATCH_N, n_points=BATCH_P,
+                                  seed=0)
+        f0, g0 = pb.batched_cost_and_grad(shape, conf, sb)
+        solve(sb)                                          # warm call
+        walls = []
+        for _ in range(3):
+            fused_zoom.LAUNCHES_BATCHED = 0
+            t0 = time.perf_counter()
+            (coeffs, T, costs, iters), n_chunks = solve(sb)
+            walls.append(time.perf_counter() - t0)
+            launches = fused_zoom.LAUNCHES_BATCHED
+        wall = statistics.median(walls)
+        what = f"batch B={B}"
+        check(tuple(coeffs.shape) == (B, BATCH_N, 6, 3)
+              and tuple(T.shape) == (B, BATCH_N),
+              f"{what}: wrong output shapes")
+        for name, v in (("coeffs", coeffs), ("T", T), ("costs", costs),
+                        ("first costs", f0), ("first gradient", g0)):
+            check(bool(torch.isfinite(v).all()), f"{what}: non-finite {name}")
+        check(bool((T > 0).all()), f"{what}: non-positive durations")
+        # A scenario's reported cost is its baseline under the warm t* seeds,
+        # its first cost the cold evaluation.  The warm sweep also zooms
+        # around the last t* and can find a deeper minimum than the cold one,
+        # so a scenario whose first line search fails (no accepted step: the
+        # halve/double schedule has no bracket and can cycle) ends at the
+        # refreshed baseline, a little above its first cost (measured: 3 of
+        # 128 scenarios, 5e-6 of the cost).  Band: 1e-3 of the first cost
+        # (the largest rise measured at B = 4096 is 1e-4);
+        # the batch as a whole must descend.
+        ratio = costs / f0
+        stuck = int((iters == 0).sum())
+        check(bool((ratio <= 1.0 + COST_RISE).all()),
+              f"{what}: {int((ratio > 1.0 + COST_RISE).sum())} scenarios "
+              f"ended more than {COST_RISE} above their first cost")
+        check(float(ratio.median()) < 0.9,
+              f"{what}: the median cost fell only to "
+              f"{float(ratio.median()):.3f} of the first")
+        # the lockstep schedule: one first evaluation, then per chunk
+        # 2·chunk + 8 loop trips of two evaluations, one K2 launch each
+        expect = 1 + 2 * trips * n_chunks
+        check(launches == expect, f"{what}: {launches} K2 launches, the "
+                                  f"lockstep schedule implies {expect}")
+        rec = dict(B=B, N=BATCH_N, P=BATCH_P, max_iters=BATCH_ITERS,
+                   chunk=BATCH_CHUNK, chunks=n_chunks,
+                   loop_trips=trips * n_chunks, k2_launches=launches,
+                   wall_s=wall, walls_s=walls, plans_per_s=B / wall,
+                   accepted_steps_mean=float(iters.float().mean()),
+                   no_accepted_step=stuck,
+                   above_first_cost=int((ratio > 1.0).sum()),
+                   cost_ratio_max=float(ratio.max()),
+                   cost_first_median=float(f0.median()),
+                   cost_final_median=float(costs.median()))
+        print("batch " + json.dumps(rec), flush=True)
+        if B == 128:
+            launches_main, small = launches, (sb, costs)
+        else:
+            big_case = (shape, conf, sb)
+
+    # a scenario's result does not depend on its neighbours: scenarios 0–3
+    # of the B = 128 batch solved alone as a B = 4 batch.  Not bitwise: the
+    # library's reductions and batched LU round differently at another
+    # batch size.  The band is 1e-4 of the cost (measured: ≤ 7.6e-7 on an
+    # H100 at 700 W), tight enough that a scenario reading a neighbour's
+    # pose table or durations would leave it.
+    sb, costs = small
+    sb4 = pb.ScenarioBatch(*(getattr(sb, n)[:4] for n in (
+        "head", "tail", "q0", "T0", "points", "mask")))
+    (_, _, costs4, _), _ = solve(sb4)
+    rel = ((costs4 - costs[:4]).abs() / costs[:4].abs()).tolist()
+    print("batch B=4 against scenarios 0-3 of B=128: costs "
+          + json.dumps(dict(alone=costs4.tolist(), in_batch=costs[:4].tolist(),
+                            rel_diff=rel)), flush=True)
+    check(max(rel) <= ALONE_RTOL, f"batch: scenarios solved alone differ "
+                                  f"by {max(rel):.3g} of their cost")
+
+    sba = pb.make_random_batch(conf, 128, N=BATCH_N, n_points=BATCH_P, seed=3)
+    fused_zoom.LAUNCHES_BATCHED = 0
+    t0 = time.perf_counter()
+    coeffs, T, costs, iters, audit = pb.batched_solve_audited(
+        shape, conf, sba, max_iters=BATCH_ITERS, chunk=BATCH_CHUNK,
+        audit_coarse_n=AUDIT_COARSE_N)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name, v in (("coeffs", coeffs), ("T", T), ("costs", costs)):
+        check(bool(torch.isfinite(v).all()), f"audited: non-finite {name}")
+    check(bool(np.isfinite(audit["min_sdf"]).all()),
+          "audited: non-finite min SDF")
+    hist = audit["violations_per_round"]
+    print("batch audited " + json.dumps(dict(
+        B=128, wall_s=wall, plans_per_s=128 / wall,
+        k2_launches=fused_zoom.LAUNCHES_BATCHED,
+        violations_per_round=hist, last_violations=hist[-1],
+        min_sdf_min=float(audit["min_sdf"].min()),
+        min_sdf_median=float(np.median(audit["min_sdf"])),
+        scenarios_clear=int((audit["min_sdf"] > 1e-3).sum()))), flush=True)
+    check(fused_zoom.LAUNCHES_BATCHED > 0, "the audited solve never "
+                                           "launched K2")
+    return launches_main, big_case
+
+
+def kernel_line(name, replaces, launches, max_abs_err, rec):
+    return {
+        "name": name, "route": "cuda",
+        "source": "isdf_torch/csrc/sweep_warm.cu", "replaces": replaces,
+        "launches": launches, "max_abs_err": max_abs_err, "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -363,38 +857,49 @@ def main() -> int:
     dev = torch.device("cuda")
     try:
         t0 = time.perf_counter()
-        lib = fused_zoom.build()
-        print(f"build: K1 {lib.name} in {time.perf_counter() - t0:.2f} s",
-              flush=True)
-        records = phase_kernels(dev)
-        _, launches, pm = phase_plan(dev)
+        libs = fused_zoom.build()
+        print(f"build: K1, K2 and K4 for {len(libs)} body-SDF kinds "
+              f"({len(libs)} libraries, built in parallel) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        k1_recs, slice_case = phase_kernels(dev)
+        k2_recs = phase_k2(dev)
+        k4_recs = phase_k4(dev, slice_case)
+        check(not KERNEL_FAILURES, "; ".join(KERNEL_FAILURES))
+        _, k1_launches, pm, traj = phase_plan(dev)
+        k4_launches = phase_refine(pm, traj)
+        k2_launches, batch_case = phase_batch(dev)
         if "--profile" in sys.argv[1:]:
-            phase_profile(pm)
+            phase_profile(pm, batch_case)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    main_rec = next(r for r in records
-                    if r["size"] == "slice" and r["shape"] == "RoundedCone")
-    k1 = {
-        "name": "sweep_warm_fused",
-        "route": "cuda",
-        "source": "isdf_torch/csrc/sweep_warm.cu",
-        "replaces": "isdf_tpu/sweep/pallas_zoom.py:414",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_d"] for r in records),
-        "ms": main_rec["ms"],
-        "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"],
-        "bound_by": main_rec["bound_by"],
-        "library_ms": None,
-    }
+    # K1 at the plan's size and shape; K2 at the B = 128 solve's size, error
+    # and times from the same case (the audit's and the B = 4096 case are in
+    # the "K2 vs plain, timed" lines); K4 at the slice's size.  K4 has no caller in the package, as
+    # zoom_refine has none in the JAX package: its path is its own entry
+    # point, driven by phase_refine.
+    k1_main = next(r for r in k1_recs
+                   if r["size"] == "slice" and r["shape"] == "RoundedCone")
+    k2_main = next(r for r in k2_recs if r.get("ms") and r["B"] == 128)
+    k4_main = next(r for r in k4_recs if r["shape"] == "RoundedCone")
+    kernels = [
+        kernel_line("sweep_warm_fused", "isdf_tpu/sweep/pallas_zoom.py:414",
+                    k1_launches, max(r["max_abs_d"] for r in k1_recs),
+                    k1_main),
+        kernel_line("sweep_warm_fused_batched",
+                    "isdf_tpu/sweep/pallas_zoom.py:450", k2_launches,
+                    k2_main["max_abs_d"], k2_main),
+        kernel_line("zoom_refine", "isdf_tpu/sweep/pallas_zoom.py:213",
+                    k4_launches, max(r["max_abs_d"] for r in k4_recs),
+                    k4_main),
+    ]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else "nvidia-smi: no output")
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -45,40 +45,62 @@ def beta(s: torch.Tensor, order: int, n_coef: int = 6) -> torch.Tensor:
     return f * P[..., idx]
 
 
+def take_pieces(x: torch.Tensor, idx: torch.Tensor, batched: bool):
+    """Rows of the per-piece table x at piece indices idx: x[idx] for one
+    trajectory (x (N, ...)), and for a batch (x (B, N, ...), idx (B, M))
+    each scenario's own rows, (B, M, ...)."""
+    if not batched:
+        return x[idx]
+    b = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[b, idx]
+
+
 @dataclass
 class PolyTraj:
-    """(durations[N], coeffs[N, n_coef, 3]) — ascending powers."""
+    """(durations[N], coeffs[N, n_coef, 3]) — ascending powers.
+
+    With a leading scenario axis — durations (B, N), coeffs (B, N, n_coef, 3)
+    — it is a batch of B independent trajectories with N pieces each; global
+    times are then (B, M), one row per scenario."""
 
     durations: torch.Tensor
     coeffs: torch.Tensor
 
     @property
+    def batched(self) -> bool:
+        return self.durations.dim() == 2
+
+    @property
     def n_pieces(self) -> int:
-        return self.durations.shape[0]
+        return self.durations.shape[-1]
 
     @property
     def n_coef(self) -> int:
-        return self.coeffs.shape[1]
+        return self.coeffs.shape[-2]
 
     @property
     def total_duration(self) -> torch.Tensor:
-        return torch.sum(self.durations)
+        return torch.sum(self.durations, dim=-1)
 
     def locate(self, t):
         """(piece index, local time) for global times t.  The index is
         discrete; the local time is differentiable in t and the durations."""
-        cum = torch.cumsum(self.durations, 0)
+        cum = torch.cumsum(self.durations, -1)
         starts = cum - self.durations
         t = torch.as_tensor(t, dtype=self.durations.dtype,
                             device=self.durations.device)
-        tc = torch.minimum(torch.maximum(t, torch.zeros_like(cum[-1])),
-                           cum[-1]).detach()
-        idx = torch.searchsorted(cum.detach(), tc.reshape(-1), right=False)
-        idx = idx.clamp(0, self.n_pieces - 1).reshape(tc.shape)
-        return idx, t - starts[idx]
+        total = cum[..., -1:] if self.batched else cum[-1]
+        tc = torch.minimum(torch.maximum(t, torch.zeros_like(total)),
+                           total).detach()
+        # one row of boundaries per trajectory: () for one, (B,) for a batch
+        rows = tc.reshape(cum.shape[:-1] + (-1,)).contiguous()
+        idx = torch.searchsorted(cum.detach().contiguous(), rows,
+                                 right=False).reshape(tc.shape)
+        idx = idx.clamp(0, self.n_pieces - 1)
+        return idx, t - take_pieces(starts, idx, self.batched)
 
     def eval_local(self, idx, s, order: int = 0):
-        c = self.coeffs[idx]                            # (..., n_coef, 3)
+        c = take_pieces(self.coeffs, idx, self.batched)  # (..., n_coef, 3)
         b = beta(s, order, self.n_coef)                 # (..., n_coef)
         return torch.einsum("...k,...kd->...d", b, c)
 
@@ -92,17 +114,19 @@ class PolyTraj:
     def pvaj(self, t):
         """pos/vel/acc/jerk at global times t, each (..., 3)."""
         idx, s = self.locate(t)
-        c = self.coeffs[idx]
+        c = take_pieces(self.coeffs, idx, self.batched)
         return tuple(
             torch.einsum("...k,...kd->...d", beta(s, d, self.n_coef), c)
             for d in range(4)
         )
 
     def junction_positions(self):
-        """Positions at piece boundaries (N+1 points)."""
-        start = self.coeffs[:, 0, :]
-        last = self.eval_local(self.n_pieces - 1, self.durations[-1], 0)
-        return torch.cat([start, last[None]], dim=0)
+        """Positions at piece boundaries (N+1 points; (B, N+1, 3) for a
+        batch)."""
+        start = self.coeffs[..., 0, :]
+        b = beta(self.durations[..., -1], 0, self.n_coef)
+        last = torch.einsum("...k,...kd->...d", b, self.coeffs[..., -1, :, :])
+        return torch.cat([start, last[..., None, :]], dim=-2)
 
     def detach(self) -> "PolyTraj":
         return PolyTraj(self.durations.detach(), self.coeffs.detach())

@@ -57,11 +57,12 @@ class BackendWeights:
 
 
 def pack(tau, xi):
-    return torch.cat([tau, xi.reshape(-1)])
+    """[τ (..., N) | ξ (..., N−1, 3)] → x (..., 4N−3)."""
+    return torch.cat([tau, xi.flatten(-2)], dim=-1)
 
 
 def unpack(x, N: int):
-    return x[:N], x[N:].reshape(N - 1, 3)
+    return x[..., :N], x[..., N:].reshape(tuple(x.shape[:-1]) + (N - 1, 3))
 
 
 def build_traj(x, N, head, tail):
@@ -73,15 +74,16 @@ def build_traj(x, N, head, tail):
 
 def integral_penalty(traj: PolyTraj, params, w: BackendWeights, res: int):
     """Dynamic-feasibility penalties over pieces × (res+1) samples
-    (ref addTimeIntPenaltyParallel), trapezoid node weights."""
+    (ref addTimeIntPenaltyParallel), trapezoid node weights; per scenario
+    for a batched traj."""
     T = traj.durations
     j = torch.arange(res + 1, device=T.device)
     frac = (j / res).to(T.dtype)
-    s = T[:, None] * frac[None, :]                     # (N, res+1)
+    s = T[..., None] * frac                            # (..., N, res+1)
     c = traj.coeffs
 
     def eval_d(order):
-        return torch.einsum("nsk,nkd->nsd", beta(s, order), c)
+        return torch.einsum("...nsk,...nkd->...nsd", beta(s, order), c)
 
     vel, acc, jer = eval_d(1), eval_d(2), eval_d(3)
     quat, omg = fl.rates_of(eval_d(0), vel, acc, jer, params)
@@ -99,19 +101,20 @@ def integral_penalty(traj: PolyTraj, params, w: BackendWeights, res: int):
     )
     node = torch.where((j == 0) | (j == res), 0.5, 1.0).to(T.dtype)
     step = T / res
-    return torch.sum(pena * node[None, :] * step[:, None])
+    return minco.sum_last(pena * node * step[..., None], 2)
 
 
 def swept_penalty(shape, traj: PolyTraj, params, w: BackendWeights, points,
                   mask, t_warm, coarse_n: int, refine_rounds: int):
     """Swept-volume safety penalty over obstacle points (ref
-    addSaftyPenaOnSweptVolumeParallel, μ = 0.01) → (cost, new t*)."""
+    addSaftyPenaOnSweptVolumeParallel, μ = 0.01) → (cost, new t*); for a
+    batched traj, points (B, P, 3) → (cost (B,), t* (B, P))."""
     sdf, t_star, _ = sweep_sdf_warm(
         shape, traj, params, points, t_warm,
         coarse_n=coarse_n, refine_rounds=refine_rounds, device=points.device,
     )
     pena = w.weight_p * smoothed_l1(w.safety_hor - sdf, 0.01)
-    cost = torch.sum(torch.where(mask, pena, torch.zeros_like(pena)))
+    cost = minco.sum_last(torch.where(mask, pena, torch.zeros_like(pena)), 1)
     return cost, t_star
 
 
@@ -119,12 +122,20 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
                  points, mask, integral_res: int = 64, coarse_n: int = 64,
                  refine_rounds: int = 16, att=None, weight_ar: float = 0.0,
                  bridge: bool = True):
-    """cost_and_grad(x, aux) for opt.lbfgs; aux = t* warm starts (P,)."""
+    """cost_and_grad(x, aux) for opt.lbfgs; aux = t* warm starts (P,).
+
+    With a leading scenario axis on head/tail (B, 3, 3), points (B, P, 3),
+    mask (B, P), x (B, 4N−3) and aux (B, P), f is the per-scenario cost (B,)
+    and g (B, 4N−3) every scenario's own gradient: the scenarios are
+    independent, so one backward pass of the summed cost gives them all.  The
+    attitude term takes one trajectory only."""
+    if att is not None and weight_ar > 0.0 and head.dim() != 2:
+        raise ValueError("the attitude term takes one scenario, not a batch")
 
     def raw_cost(x, t_warm):
         traj, T, q = build_traj(x, N, head, tail)
         e = minco.energy(traj.coeffs, T)
-        t_cost = w.rho * torch.sum(T)
+        t_cost = w.rho * minco.sum_last(T, 1)
         dyn = integral_penalty(traj, params, w, integral_res)
         if att is not None and weight_ar > 0.0:
             dyn = dyn + attitude_penalty(
@@ -139,7 +150,7 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
         with torch.enable_grad():
             xg = x.detach().requires_grad_(True)
             f, t_star = raw_cost(xg, aux)
-            (g,) = torch.autograd.grad(f, xg)
+            (g,) = torch.autograd.grad(f.sum(), xg)
         return f.detach(), g, t_star
 
     return cost_and_grad

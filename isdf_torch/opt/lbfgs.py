@@ -1,5 +1,5 @@
 """L-BFGS with the Lewis–Overton weak-Wolfe line search (counterpart of
-``isdf_tpu/opt/lbfgs.py:minimize``).
+``isdf_tpu/opt/lbfgs.py``: ``minimize`` and ``minimize_lockstep``).
 
 The JAX version is one ``lax.while_loop`` under jit; here the loops are
 Python loops over tensors, and the scalar decisions (Armijo, curvature,
@@ -8,13 +8,17 @@ cost callback across iterations (the swept-SDF t* warm starts, the
 reference's ``lastTstar``).
 
 cost_and_grad signature:  (x, aux) -> (f, g, new_aux), f a 0-d tensor.
+
+``minimize_lockstep`` is the scenario-batched solver: x is (B, n), f is (B,),
+and every scenario's search advances by one trial per loop trip, all on the
+device with no decision taken on the host.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Any, Callable
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -162,3 +166,260 @@ def minimize(
 
     return LBFGSResult(x=x, f=f, g=g, n_iters=it, n_evals=evals,
                        converged=done, aux=aux, history=trace)
+
+
+# ---------------------------------------------------------------------------
+# scenario-batched lockstep solver
+# ---------------------------------------------------------------------------
+
+@dataclass
+class LockState:
+    """Solver state of :func:`minimize_lockstep`; every field has a leading
+    scenario axis B."""
+
+    x: torch.Tensor          # (B, n)
+    f: torch.Tensor          # (B,) baseline f at x (under aux)
+    g: torch.Tensor          # (B, n) baseline gradient at x
+    aux: Any                 # (B, ...) or None
+    d: torch.Tensor          # (B, n) current search direction
+    step: torch.Tensor       # (B,) next trial step
+    ls_k: torch.Tensor       # (B,) trials taken in the current search
+    S: torch.Tensor          # (B, m, n)
+    Y: torch.Tensor          # (B, m, n)
+    rho: torch.Tensor        # (B, m)
+    n_corr: torch.Tensor     # (B,)
+    head: torch.Tensor       # (B,)
+    it: torch.Tensor         # (B,) loop trips this scenario was live in
+    n_accept: torch.Tensor   # (B,) accepted (serious) steps
+    evals: torch.Tensor      # (B,)
+    done: torch.Tensor       # (B,) bool
+    fpast: torch.Tensor      # (B, past)
+    trace: torch.Tensor      # (B, trace_len)
+
+
+@dataclass
+class LockstepResult:
+    x: torch.Tensor          # (B, n)
+    f: torch.Tensor          # (B,)
+    g: torch.Tensor          # (B, n)
+    n_iters: torch.Tensor    # (B,) accepted steps
+    n_evals: torch.Tensor    # (B,)
+    converged: torch.Tensor  # (B,) bool
+    aux: Any
+    history: torch.Tensor    # (B, trace_len) cost trace, NaN-padded
+    state: LockState
+    n_loops: int             # loop trips run (2 cost evaluations each)
+
+
+def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(B,) mask shaped to broadcast against ``like`` (B, ...)."""
+    return mask.reshape(mask.shape + (1,) * (like.dim() - 1))
+
+
+def _select(mask, a, b):
+    """Per-scenario where(mask, a, b); None passes through."""
+    if a is None or b is None:
+        return b if a is None else a
+    return torch.where(_rows(mask, a), a, b)
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def _two_loop_lockstep(g, S, Y, rho, n_corr, head, m: int):
+    """Two-loop recursion, one ring buffer per scenario.  head and n_corr
+    differ between scenarios, so both loops run all m slots under masks, as
+    the JAX version does."""
+    b = torch.arange(g.shape[0], device=g.device)
+    q = g
+    alphas = torch.zeros_like(rho)
+    for i in range(m):
+        slot = (head - 1 - i) % m
+        a = rho[b, slot] * _dot(S[b, slot], q)
+        a = torch.where(i < n_corr, a, torch.zeros_like(a))
+        q = q - a[:, None] * Y[b, slot]
+        alphas = alphas.index_put((b, slot), a)
+    last = (head - 1) % m
+    yy = _dot(Y[b, last], Y[b, last])
+    sy = _dot(S[b, last], Y[b, last])
+    gamma = torch.where(n_corr > 0, sy / torch.clamp(yy, min=1e-30),
+                        torch.ones_like(sy))
+    r = gamma[:, None] * q
+    for i in range(m):
+        slot = (head - n_corr + i) % m
+        bb = rho[b, slot] * _dot(Y[b, slot], r)
+        upd = S[b, slot] * (alphas[b, slot] - bb)[:, None]
+        r = r + torch.where((i < n_corr)[:, None], upd, torch.zeros_like(upd))
+    return r
+
+
+@torch.no_grad()
+def minimize_lockstep(
+    cost_and_grad: Callable,
+    x0: torch.Tensor,
+    aux0=None,
+    m: int = 16,
+    max_iters: int = 300,
+    g_epsilon: float = 1e-6,
+    past: int = 10,
+    rel_cost_tol: float = 1e-8,
+    max_ls: int = 24,
+    max_loop: Optional[int] = None,
+    resume_state: Optional[LockState] = None,
+    trace_len: Optional[int] = None,
+    c1: float = 1e-4,
+    c2: float = 0.9,
+) -> LockstepResult:
+    """L-BFGS over B independent scenarios with the line search spread across
+    loop trips (counterpart of ``isdf_tpu/opt/lbfgs.py:minimize_lockstep``
+    under ``jax.vmap``).  x0 (B, n); cost_and_grad(x (B, n), aux) →
+    (f (B,), g (B, n), new_aux).
+
+    Every loop trip costs exactly two cost evaluations for the whole batch:
+
+      slot 1: baseline refresh at (x, aux) — consumed by scenarios that start
+              a fresh search; a scenario in mid-search keeps its stored
+              baseline, so every trial of one search tests the same objective;
+      slot 2: one weak-Wolfe trial at x + step·d; accept ⇒ push the pair, new
+              direction on the next trip; reject ⇒ halve the step (Armijo
+              failed) or double it (only the curvature failed) and retry on
+              the next trip.
+
+    max_iters counts accepted steps per scenario.  A scenario that is done,
+    has its max_iters accepts, or has been live for max_loop trips is frozen:
+    its whole state, evals included, stays as it is while the others run (a
+    masked no-op, as under JAX's vmapped ``while_loop``).  The loop runs
+    max_loop trips (default 2·max_iters + 8) and never reads a device value
+    on the host; the caller reads ``converged`` once afterwards.
+    ``resume_state`` continues a solve with max_iters more accepts and
+    max_loop more trips (chunked execution); ``trace_len`` sizes the cost
+    trace."""
+    B, n = x0.shape
+    dtype, dev = x0.dtype, x0.device
+    if max_loop is None:
+        max_loop = 2 * max_iters + 8
+    if trace_len is None:
+        trace_len = max_loop
+    trace = torch.full((B, trace_len), math.nan, dtype=dtype, device=dev)
+
+    if resume_state is not None:
+        st = replace(resume_state, trace=trace)
+        accept_end = st.n_accept + max_iters
+        loop_end = st.it + max_loop
+    else:
+        f0, g0, aux1 = cost_and_grad(x0, aux0)
+        fpast = torch.full((B, past), math.inf, dtype=dtype, device=dev)
+        fpast[:, 0] = f0
+        d0 = -g0
+        zi = torch.zeros(B, dtype=torch.long, device=dev)
+        st = LockState(
+            x=x0, f=f0, g=g0, aux=aux1, d=d0,
+            step=1.0 / torch.clamp(torch.linalg.norm(d0, dim=-1), min=1.0),
+            ls_k=zi,
+            S=torch.zeros((B, m, n), dtype=dtype, device=dev),
+            Y=torch.zeros((B, m, n), dtype=dtype, device=dev),
+            rho=torch.zeros((B, m), dtype=dtype, device=dev),
+            n_corr=zi, head=zi, it=zi, n_accept=zi, evals=zi + 1,
+            done=torch.zeros(B, dtype=torch.bool, device=dev),
+            fpast=fpast, trace=trace,
+        )
+        accept_end = torch.full_like(zi, max_iters)
+        loop_end = torch.full_like(zi, max_loop)
+
+    b = torch.arange(B, device=dev)
+    one = torch.ones((), dtype=dtype, device=dev)
+    for _ in range(max_loop):
+        live = (~st.done) & (st.it < loop_end) & (st.n_accept < accept_end)
+
+        # slot 1: baseline refresh
+        f_re, g_re, _ = cost_and_grad(st.x, st.aux)
+        fresh = st.ls_k == 0
+        f0 = torch.where(fresh, f_re, st.f)
+        g0 = torch.where(fresh[:, None], g_re, st.g)
+
+        # direction: recomputed on fresh searches only
+        d_new = -_two_loop_lockstep(g0, st.S, st.Y, st.rho, st.n_corr,
+                                    st.head, m)
+        d_new = torch.where((_dot(d_new, g0) < 0)[:, None], d_new, -g0)
+        dnorm = torch.linalg.norm(d_new, dim=-1)
+        step_new = torch.where(st.n_corr > 0, one,
+                               1.0 / torch.clamp(dnorm, min=1.0))
+        d = torch.where(fresh[:, None], d_new, st.d)
+        step = torch.where(fresh, step_new, st.step)
+        dg0 = _dot(d, g0)
+
+        # slot 2: one weak-Wolfe trial
+        xt = st.x + step[:, None] * d
+        ft, gt, auxt = cost_and_grad(xt, st.aux)
+        armijo = ft <= f0 + c1 * step * dg0
+        curv = _dot(gt, d) >= c2 * dg0
+        ok = armijo & curv
+        exhausted = (st.ls_k + 1 >= max_ls) & (~ok)
+        # on exhaustion keep the last trial anyway when it decreased f;
+        # else the search failed → done
+        salvage = exhausted & (ft < f0)
+        accept = ok | salvage
+        fail = exhausted & (~salvage)
+
+        s_vec = xt - st.x
+        y_vec = gt - g0
+        sy = _dot(s_vec, y_vec)
+        good = live & accept & (sy > 1e-10 * torch.linalg.norm(s_vec, dim=-1)
+                                * torch.linalg.norm(y_vec, dim=-1))
+        S = st.S.index_put((b, st.head), torch.where(
+            good[:, None], s_vec, st.S[b, st.head]))
+        Y = st.Y.index_put((b, st.head), torch.where(
+            good[:, None], y_vec, st.Y[b, st.head]))
+        rho = st.rho.index_put((b, st.head), torch.where(
+            good, 1.0 / sy, st.rho[b, st.head]))
+        head = torch.where(good, (st.head + 1) % m, st.head)
+        n_corr = torch.where(good, torch.clamp(st.n_corr + 1, max=m),
+                             st.n_corr)
+
+        x_new = torch.where(accept[:, None], xt, st.x)
+        f_new = torch.where(accept, ft, f0)
+        g_new = torch.where(accept[:, None], gt, g0)
+        # on a reject: Armijo failure means the step is too long (halve);
+        # Armijo passed but the curvature failed means it is too short
+        # (halving can never fix that), so grow
+        grow = armijo & (~curv)
+        step = torch.where(accept, step,
+                           torch.where(grow, 2.0 * step, 0.5 * step))
+
+        gnorm = torch.linalg.norm(g_new, dim=-1) / torch.clamp(
+            torch.linalg.norm(x_new, dim=-1), min=1.0)
+        conv_g = accept & (gnorm < g_epsilon)
+        # the slot an accept overwrites was written `past` accepts ago
+        slot = ((st.n_accept + 1) % past)[:, None]
+        f_old = st.fpast.gather(1, slot)[:, 0]
+        conv_f = accept & (st.n_accept >= past) & (
+            (f_old - f_new) / torch.clamp(f_new.abs(), min=1.0)
+            < rel_cost_tol)
+        took = live & accept
+        tslot = (st.it % trace_len)[:, None]
+        st = LockState(
+            x=torch.where(live[:, None], x_new, st.x),
+            f=torch.where(live, f_new, st.f),
+            g=torch.where(live[:, None], g_new, st.g),
+            aux=_select(took, auxt, st.aux),
+            d=torch.where(live[:, None], d, st.d),
+            step=torch.where(live, step, st.step),
+            ls_k=torch.where(live, torch.where(accept, 0, st.ls_k + 1),
+                             st.ls_k),
+            S=S, Y=Y, rho=rho, n_corr=n_corr, head=head,
+            it=st.it + live,
+            n_accept=st.n_accept + took,
+            evals=st.evals + 2 * live,
+            done=st.done | (live & (conv_g | conv_f | fail)),
+            fpast=st.fpast.scatter(1, slot, torch.where(
+                took, f_new, f_old)[:, None]),
+            trace=st.trace.scatter(1, tslot, torch.where(
+                live, f_new, st.trace.gather(1, tslot)[:, 0])[:, None]),
+        )
+
+    return LockstepResult(
+        x=st.x, f=st.f, g=st.g, n_iters=st.n_accept, n_evals=st.evals,
+        converged=st.done, aux=st.aux, history=st.trace, state=st,
+        n_loops=max_loop,
+    )

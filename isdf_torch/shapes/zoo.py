@@ -3,9 +3,9 @@
 Same shapes and parameter values as the reference's Shape.hpp classes.
 Every shape carries the yaml pose transform (trans, Rotate) from
 ``poly_params`` (tx,ty,tz, roll,pitch,yaw in degrees; local query
-p_local = Rotateᵀ(p − trans)).  Gradients come from autograd.  Shapes that
-the CUDA sweep kernel can evaluate also carry a ``ShapeSpec``
-(shapes/spec.py).
+p_local = Rotateᵀ(p − trans)).  Gradients come from autograd.  Every
+shape also carries a ``ShapeSpec`` (shapes/spec.py), the description the
+CUDA sweep kernels evaluate.
 """
 
 from __future__ import annotations
@@ -46,7 +46,8 @@ class Shape:
 
     ``sdf`` maps points (..., 3) to distances (...); ``sdf3`` is the
     component form (px, py, pz) → d; ``spec`` the device description the
-    CUDA sweep kernel evaluates (None: no device SDF yet)."""
+    CUDA sweep kernels evaluate (every zoo shape has one; None on a shape
+    built by hand means the kernels cannot take it)."""
 
     name: str
     sdf: Callable
@@ -88,20 +89,21 @@ def ball(conf=None, radius: float = 1.0) -> Shape:
 
 
 def point(conf=None) -> Shape:
-    return _posed("Point", pr.point_c, (0.1,) * 3, conf)
+    return _posed("Point", pr.point_c, (0.1,) * 3, conf, sp.point_spec())
 
 
 def torus(conf=None, ring_r: float = 2.5, tube_r: float = 0.3) -> Shape:
     # the reference names these backwards: tubeRadius{2.5} is the ring radius
     b = (ring_r + tube_r, tube_r, ring_r + tube_r)
     return _posed(
-        "Torus", lambda x, y, z: pr.torus_c(x, y, z, ring_r, tube_r), b, conf
+        "Torus", lambda x, y, z: pr.torus_c(x, y, z, ring_r, tube_r), b, conf,
+        sp.torus_spec(ring_r, tube_r),
     )
 
 
 def torus_big(conf=None) -> Shape:
     s = torus(conf, ring_r=3.5, tube_r=0.3)
-    return Shape("Torus_big", s.sdf, s.bounds, sdf3=s.sdf3)
+    return Shape("Torus_big", s.sdf, s.bounds, sdf3=s.sdf3, spec=s.spec)
 
 
 def capped_torus(conf=None) -> Shape:
@@ -112,6 +114,7 @@ def capped_torus(conf=None) -> Shape:
     return _posed(
         "Cappedtorus",
         lambda x, y, z: pr.capped_torus_c(x, y, z, sc, ra, rb), b, conf,
+        sp.capped_torus_spec(sc, ra, rb),
     )
 
 
@@ -143,34 +146,39 @@ def wireframe_box(conf=None) -> Shape:
     return _posed(
         "WireframeBox",
         lambda x, y, z: pr.wireframe_box_c(x, y, z, size, th), b, conf,
+        sp.wireframe_box_spec(size, th),
     )
+
+
+def _bend_capsule(name, half_len, radius, bounds, conf) -> Shape:
+    """A z-capsule of half length ``half_len`` bent linearly towards −x."""
+    a, b = (0, 0, -half_len), (0, 0, half_len)
+    p0, p1, v = (0, 0, -1.0), (0, 0, 1.0), (-1.0, 0, 0)
+    f = ops.bend_linear3(
+        lambda x, y, z: pr.capsule_c(x, y, z, a, b, radius), p0, p1, v)
+    return _posed(name, f, bounds, conf,
+                  sp.bend_linear_spec(p0, p1, v, a, b, radius))
 
 
 def bend_linear(conf=None) -> Shape:
-    f = ops.bend_linear3(
-        lambda x, y, z: pr.capsule_c(x, y, z, (0, 0, -2.0), (0, 0, 2.0), 0.25),
-        (0, 0, -1.0), (0, 0, 1.0), (-1.0, 0, 0),
-    )
-    return _posed("BendLinear", f, (1.5, 0.5, 2.5), conf)
+    return _bend_capsule("BendLinear", 2.0, 0.25, (1.5, 0.5, 2.5), conf)
 
 
 def bend_linear_big(conf=None) -> Shape:
-    f = ops.bend_linear3(
-        lambda x, y, z: pr.capsule_c(x, y, z, (0, 0, -3.2), (0, 0, 3.2), 0.45),
-        (0, 0, -1.0), (0, 0, 1.0), (-1.0, 0, 0),
-    )
-    return _posed("BendLinear_big", f, (1.7, 0.7, 3.9), conf)
+    return _bend_capsule("BendLinear_big", 3.2, 0.45, (1.7, 0.7, 3.9), conf)
 
 
 def twist_box(conf=None) -> Shape:
     f = ops.twist3(
         lambda x, y, z: pr.box_c(x, y, z, (1.0, 1.0, 1.0)), math.pi / 6)
-    return _posed("TwistBox", f, (1.5, 1.5, 1.0), conf)
+    return _posed("TwistBox", f, (1.5, 1.5, 1.0), conf,
+                  sp.twist_box_spec(math.pi / 6, (1.0, 1.0, 1.0)))
 
 
 def bend_box(conf=None) -> Shape:
     f = ops.bend3(lambda x, y, z: pr.box_c(x, y, z, (1.0, 1.0, 1.0)), 0.5)
-    return _posed("BendBox", f, (1.6, 1.6, 1.0), conf)
+    return _posed("BendBox", f, (1.6, 1.6, 1.0), conf,
+                  sp.bend_box_spec(0.5, (1.0, 1.0, 1.0)))
 
 
 def table(conf=None) -> Shape:
@@ -186,20 +194,23 @@ def table(conf=None) -> Shape:
         f2 = pr.box_c(qx - c2[0], qy - c2[1], qz - c2[2], h2)
         return vmin(f1, f2)
 
-    return _posed("Table", f, (3.5, 1.75, 2.8), conf)
+    return _posed("Table", f, (3.5, 1.75, 2.8), conf,
+                  sp.table_spec(c1, h1, c2, h2))
 
 
 def blobby(conf=None) -> Shape:
     """Smooth union of four balls (the shape the reference's Blobby, which
     has no return statement, implies)."""
-    s1 = lambda x, y, z: pr.sphere_c(x - 1.0, y, z, 1.0)
-    s2 = lambda x, y, z: pr.sphere_c(x + 1.0, y, z, 1.0)
-    s3 = lambda x, y, z: pr.sphere_c(x, y - 1.2, z, 0.8)
-    s4 = lambda x, y, z: pr.sphere_c(x, y, z - 1.2, 0.8)
+    balls = ((1.0, 0.0, 0.0, 1.0), (-1.0, 0.0, 0.0, 1.0),
+             (0.0, 1.2, 0.0, 0.8), (0.0, 0.0, 1.2, 0.8))
+    s1, s2, s3, s4 = (
+        (lambda x, y, z, c=c: pr.sphere_c(x - c[0], y - c[1], z - c[2], c[3]))
+        for c in balls)
     f = ops.smooth_union3(
         ops.smooth_union3(s1, s2, 0.5), ops.smooth_union3(s3, s4, 0.5), 0.5
     )
-    return _posed("Blobby", f, (2.2, 2.2, 2.2), conf)
+    return _posed("Blobby", f, (2.2, 2.2, 2.2), conf,
+                  sp.blobby_spec(balls, 0.5))
 
 
 def trefoil(conf=None) -> Shape:
@@ -227,10 +238,10 @@ def trefoil(conf=None) -> Shape:
             + 1e-12)
         return 0.4 * (box2 - 0.05)
 
-    return _posed("Trefoil", f, (5.0, 5.0, 1.5), conf)
+    return _posed("Trefoil", f, (5.0, 5.0, 1.5), conf, sp.trefoil_spec())
 
 
-def _box_sphere(size, radius, mode) -> Callable:
+def _box_sphere(name, size, radius, mode, bounds, conf) -> Shape:
     half = np.asarray(size) / 2
 
     def f(x, y, z):
@@ -238,31 +249,23 @@ def _box_sphere(size, radius, mode) -> Callable:
         sph = pr.sphere_c(x, y, z, radius)
         return ops._smooth_pair(box_sdf, sph, 0.25, mode)
 
-    return f
+    return _posed(name, f, bounds, conf,
+                  sp.box_sphere_spec(half, radius, 0.25, mode))
 
 
 def smooth_difference(conf=None) -> Shape:
-    return _posed(
-        "SmoothDifference",
-        _box_sphere((3.0, 3.0, 0.5), 1.0, "difference"),
-        (1.75, 1.75, 1.0), conf,
-    )
+    return _box_sphere("SmoothDifference", (3.0, 3.0, 0.5), 1.0,
+                       "difference", (1.75, 1.75, 1.0), conf)
 
 
 def smooth_intersection(conf=None) -> Shape:
-    return _posed(
-        "SmoothIntersection",
-        _box_sphere((3.0, 3.0, 0.5), 1.0, "intersection"),
-        (1.25, 1.25, 0.5), conf,
-    )
+    return _box_sphere("SmoothIntersection", (3.0, 3.0, 0.5), 1.0,
+                       "intersection", (1.25, 1.25, 0.5), conf)
 
 
 def smooth_intersection_big(conf=None) -> Shape:
-    return _posed(
-        "SmoothIntersection_big",
-        _box_sphere((9.0, 9.0, 1.5), 3.0, "intersection"),
-        (3.25, 3.25, 1.0), conf,
-    )
+    return _box_sphere("SmoothIntersection_big", (9.0, 9.0, 1.5), 3.0,
+                       "intersection", (3.25, 3.25, 1.0), conf)
 
 
 def csg(conf=None) -> Shape:
@@ -275,7 +278,8 @@ def csg(conf=None) -> Shape:
     cx = lambda x, y, z: pr.cylinder_c(y, z, x, 1.5)
     cy = lambda x, y, z: pr.cylinder_c(z, x, y, 1.5)
     final = ops.difference3(f, ops.union3(cx, cy, cz))
-    return _posed("CSG", final, (2.25, 2.25, 2.25), conf)
+    return _posed("CSG", final, (2.25, 2.25, 2.25), conf,
+                  sp.csg_spec(3.0, (2.25, 2.25, 2.25), 1.5))
 
 
 def box(conf=None) -> Shape:
@@ -285,7 +289,7 @@ def box(conf=None) -> Shape:
     # config values are half-extents (ref Shape.hpp:2344-2351)
     return _posed(
         "Box", lambda x, y, z: pr.box_c(x, y, z, (bx, by, bz)),
-        (bx, by, bz), conf,
+        (bx, by, bz), conf, sp.box_spec((bx, by, bz)),
     )
 
 

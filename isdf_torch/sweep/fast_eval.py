@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from isdf_torch.core.poly import take_pieces
 from isdf_torch.core.smoothing import clip
 
 
@@ -21,8 +22,13 @@ def _fact_ratio(k: int, d: int) -> float:
 
 
 def piece_index(cum: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """idx = #{n < N-1 : t > cum[n]} — the kernel's piece rule."""
-    n = cum.shape[0]
+    """idx = #{n < N-1 : t > cum[n]} — the kernel's piece rule.  cum (N,)
+    with t of any shape, or a batch cum (B, N) with t (B, M), each row
+    against its own boundaries."""
+    n = cum.shape[-1]
+    if cum.dim() == 2:
+        return torch.searchsorted(cum[:, :n - 1].contiguous(),
+                                  t.detach().contiguous())
     return torch.searchsorted(cum[:n - 1].contiguous(),
                               t.detach().reshape(-1)).reshape(t.shape)
 
@@ -32,12 +38,17 @@ def pvaj_tables(starts, durs, cum, coeffs, t: torch.Tensor,
     """pos/vel/acc[/jerk] components at global times t from the piece tables
     (starts, durations, cumulative ends, coeffs (N, n_coef, 3)): the located
     piece only, Horner on derivative-folded coefficients.  Returns
-    ``n_orders`` 3-tuples of tensors shaped like t."""
-    n_coef = coeffs.shape[1]
-    tc = clip(t, 0.0, cum[-1]).detach()
+    ``n_orders`` 3-tuples of tensors shaped like t.  With a leading scenario
+    axis on the tables ((B, N), (B, N, n_coef, 3)) t is (B, M) and each row
+    is evaluated on its own scenario's pieces."""
+    batched = cum.dim() == 2
+    n_coef = coeffs.shape[-2]
+    total = cum[:, -1:] if batched else cum[-1]
+    tc = clip(t, 0.0, total).detach()
     idx = piece_index(cum, tc)
-    s = clip(t - starts[idx], 0.0, durs[idx])
-    c = coeffs[idx]                                   # t.shape + (n_coef, 3)
+    s = clip(t - take_pieces(starts, idx, batched), 0.0,
+             take_pieces(durs, idx, batched))
+    c = take_pieces(coeffs, idx, batched)             # t.shape + (n_coef, 3)
     result = []
     for d in range(n_orders):
         if d >= n_coef:
@@ -57,11 +68,12 @@ def pvaj_tables(starts, durs, cum, coeffs, t: torch.Tensor,
 
 
 def pvaj_components(traj, t: torch.Tensor, n_orders: int = 3):
-    """pos/vel/acc[/jerk] components at global times t.  Returns ``n_orders``
-    3-tuples of tensors shaped like t (padded with zeros to 4)."""
+    """pos/vel/acc[/jerk] components at global times t (for a batched traj,
+    t (B, M)).  Returns ``n_orders`` 3-tuples of tensors shaped like t
+    (padded with zeros to 4)."""
     dtype = t.dtype
     durations = traj.durations.to(dtype)
-    cum = torch.cumsum(durations, 0)
+    cum = torch.cumsum(durations, -1)
     starts = cum - durations
     result = list(pvaj_tables(starts, durations, cum, traj.coeffs.to(dtype),
                               t, n_orders))

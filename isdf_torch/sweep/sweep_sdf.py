@@ -3,9 +3,11 @@
 
 Analytic shapes go through K1 (sweep/fused_zoom.py): one launch does the
 shared coarse scan, the warm and the cold zoom, the branch pick and the
-gradient at t*.  The differentiable value is then SDF(p, t*) evaluated with
-autograd at the frozen t* (envelope theorem — the reference treats t* as a
-constant in its gradient, back_end_optimizer.hpp:827).
+gradient at t*.  A batch of scenarios (a trajectory with a leading B axis,
+points (B, P, 3)) goes through K2, one launch for all scenarios.  The
+differentiable value is then SDF(p, t*) evaluated with autograd at the
+frozen t* (envelope theorem — the reference treats t* as a constant in its
+gradient, back_end_optimizer.hpp:827).
 
 The grid (mesh robot) and pooled branches wait for K3.
 """
@@ -21,35 +23,40 @@ from isdf_torch.sweep.fast_eval import sdf_at_time_c
 
 
 def traj_states(traj, params, ts):
-    """Poses (x, R) at times ts (T,) → ((T, 3), (T, 3, 3))."""
+    """Poses (x, R) at times ts (T,) → ((T, 3), (T, 3, 3)); for a batched
+    traj, ts (B, T) → ((B, T, 3), (B, T, 3, 3))."""
     pos, vel, acc, jer = traj.pvaj(ts)
     return fl.pose_of(pos, vel, acc, jer, params)
 
 
 def _sweep_fused(shape, traj, params, p_eva, t_warm, coarse_n, refine_rounds,
                  warm_window):
-    """K1 launch + one differentiable re-evaluation at t*.
+    """One kernel launch + one differentiable re-evaluation at t*: K1 for one
+    trajectory (p_eva (P, 3)), K2 for a batch (p_eva (B, P, 3), each
+    scenario with its own pose table and durations).
 
     On the card the kernel runs in float32, as the Pallas kernel does; the
     results come back in the working dtype."""
     dtype = p_eva.dtype
     kdtype = torch.float32 if p_eva.is_cuda else dtype
+    kernel = (fused_zoom.sweep_warm_fused_batched if traj.batched
+              else fused_zoom.sweep_warm_fused)
     with torch.no_grad():
         total = traj.total_duration
         ts = torch.linspace(0.0, 1.0, coarse_n, dtype=dtype,
-                            device=p_eva.device) * total
+                            device=p_eva.device) * total[..., None]
         xs, Rs = traj_states(traj.detach(), params, ts)
-        pose = torch.cat([xs, Rs.reshape(-1, 9)], dim=1)
+        pose = torch.cat([xs, Rs.flatten(-2)], dim=-1)
         durs = traj.durations.detach()
-        starts = torch.cumsum(durs, 0) - durs
-        t_star, _, grad_prel = fused_zoom.sweep_warm_fused(
+        starts = torch.cumsum(durs, -1) - durs
+        t_star, _, grad_prel = kernel(
             shape, params,
             *(a.to(kdtype).contiguous() for a in (
                 p_eva.detach(), t_warm.detach(), pose, starts, durs,
                 traj.coeffs.detach())),
             coarse_n=coarse_n, rounds=refine_rounds, warm_window=warm_window)
     t_star = t_star.to(dtype)
-    pw = (p_eva[:, 0], p_eva[:, 1], p_eva[:, 2])
+    pw = (p_eva[..., 0], p_eva[..., 1], p_eva[..., 2])
     sdf_star = sdf_at_time_c(shape, traj, params, pw, t_star)
     return sdf_star, t_star, grad_prel.to(dtype)
 
@@ -57,13 +64,14 @@ def _sweep_fused(shape, traj, params, p_eva, t_warm, coarse_n, refine_rounds,
 def sweep_sdf(shape, traj, params, p_eva, coarse_n: int = 128,
               refine_rounds: int = 24, device=None):
     """Swept-volume SDF for a batch of points (cold start) →
-    (sdf* (P,), t* (P,), grad_prel (P, 3)).  As on the TPU, the cold sweep is
+    (sdf* (P,), t* (P,), grad_prel (P, 3)); with a batched traj and p_eva
+    (B, P, 3), each with a leading B.  As on the TPU, the cold sweep is
     the warm sweep seeded at t = 0 with window 0.3: the coarse branch gives
     the global argmin, the warm branch costs one redundant zoom."""
     dev = resolve_device(device)
     check_on(dev, p_eva=p_eva, durations=traj.durations)
     return _sweep_fused(shape, traj, params, p_eva,
-                        torch.zeros_like(p_eva[:, 0]), coarse_n,
+                        torch.zeros_like(p_eva[..., 0]), coarse_n,
                         refine_rounds, 0.3)
 
 

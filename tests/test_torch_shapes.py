@@ -3,8 +3,8 @@
 Every registry shape, unposed and posed through ``poly_params``: value on
 256 random points to atol 1e-9, and the autograd gradient against jax.grad
 away from seams (a point counts as off a seam when JAX's own gradient moves
-by less than 1e-3 under a 1e-6 nudge).  The three shapes with a device
-description (shapes/spec.py) are also held against their zoo closures."""
+by less than 1e-3 under a 1e-6 nudge).  Every shape's device description
+(shapes/spec.py) is also held against its zoo closure in both packages."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +17,7 @@ from isdf_tpu.shapes.zoo import SHAPE_REGISTRY as JREG
 
 from isdf_torch.config import Config
 from isdf_torch.shapes import SHAPE_REGISTRY, make_shape
-from isdf_torch.shapes.spec import spec_sdf3
+from isdf_torch.shapes.spec import KINDS, MAX_PARAMS, spec_sdf3
 
 POSE = (0.3, -0.2, 0.1, 20.0, -35.0, 120.0)
 
@@ -53,18 +53,51 @@ def test_shape_value_and_gradient(name, posed):
 
 
 @pytest.mark.parametrize("posed", [False, True])
-@pytest.mark.parametrize("name", ["Ball", "RoundedCone", "CappedCone"])
+@pytest.mark.parametrize("name", sorted(SHAPE_REGISTRY))
 def test_device_spec_matches_closure(name, posed):
-    conf = Config(poly_params=POSE) if posed else Config()
-    shape = make_shape(name, conf)
+    """spec_sdf3 (the plain form of the device SDF) against the port's
+    closure and against the JAX closure, float64: rtol 1e-9 (atol 1e-12 for
+    values at the surface)."""
+    kw = dict(poly_params=POSE) if posed else {}
+    shape = make_shape(name, Config(**kw))
     assert shape.spec is not None and shape.spec.posed == posed
-    p = torch.as_tensor(_points(name, seed=2))
+    pn = _points(name, seed=2)
+    p = torch.as_tensor(pn)
     x, y, z = p[:, 0], p[:, 1], p[:, 2]
-    np.testing.assert_allclose(spec_sdf3(shape.spec, x, y, z).numpy(),
-                               shape.sdf3(x, y, z).numpy(), atol=1e-12,
-                               rtol=0)
+    d = spec_sdf3(shape.spec, x, y, z).numpy()
+    np.testing.assert_allclose(d, shape.sdf3(x, y, z).numpy(), rtol=1e-9,
+                               atol=1e-12)
+    j3 = jmake_shape(name, JConfig(**kw)).sdf3_fn()
+    dj = np.asarray(j3(*(jnp.asarray(pn[:, c]) for c in range(3))))
+    np.testing.assert_allclose(d, dj, rtol=1e-9, atol=1e-12)
+
+
+def test_device_spec_gradient_matches_closure():
+    """The device SDF's gradient is the derivative of the same arithmetic:
+    autograd through spec_sdf3 equals autograd through the closure."""
+    for name in sorted(SHAPE_REGISTRY):
+        shape = make_shape(name, Config(poly_params=POSE))
+        p = torch.as_tensor(_points(name, seed=3, n=64))
+        q = [p[:, c].clone().requires_grad_(True) for c in range(3)]
+        g_spec = torch.autograd.grad(spec_sdf3(shape.spec, *q).sum(), q,
+                                     allow_unused=True)
+        g_zoo = torch.autograd.grad(shape.sdf3(*q).sum(), q,
+                                    allow_unused=True)
+        for a, b in zip(g_spec, g_zoo):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9,
+                                       atol=1e-12, err_msg=name)
 
 
 def test_shapes_without_device_spec():
-    with_spec = {n for n in SHAPE_REGISTRY if make_shape(n).spec is not None}
-    assert with_spec == {"Ball", "RoundedCone", "CappedCone"}
+    """Every zoo shape has a device description; shapes that differ only in
+    constants share a kind; the constants fit the device struct."""
+    specs = {n: make_shape(n).spec for n in SHAPE_REGISTRY}
+    assert all(s is not None for s in specs.values())
+    assert all(len(s.params) <= MAX_PARAMS for s in specs.values())
+    assert {s.kind for s in specs.values()} == set(KINDS)
+    assert specs["Torus"].kind == specs["Torus_big"].kind
+    assert specs["Torus"].params != specs["Torus_big"].params
+    assert specs["BendLinear"].kind == specs["BendLinear_big"].kind
+    assert (specs["SmoothDifference"].kind
+            == specs["SmoothIntersection"].kind
+            == specs["SmoothIntersection_big"].kind)
