@@ -6,9 +6,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   — compile every kernel from the sources (K1, K2 and K4:
-               isdf_torch/csrc/sweep_warm.cu, one library per body-SDF kind,
-               all nvcc processes started together) and print the seconds;
+  1. build   — compile every kernel from the sources, all nvcc processes
+               started together (K1, K2 and K4: isdf_torch/csrc/sweep_warm.cu,
+               one library per body-SDF kind; K3: isdf_torch/csrc/
+               grid_sweep.cu) and print the seconds;
   2. kernels — hold each kernel against its plain PyTorch version on the card
                and time both with CUDA events:
                K1 against sweep_warm_fused_ref for RoundedCone (posed), Ball
@@ -22,6 +23,11 @@ Phases (any failure exits non-zero):
                (every scenario) and B = 4096 (five scenarios), and cold at
                the audit's coarse_n = 512 at B = 128;
                K4 against zoom_refine_ref at the slice's size;
+               K3 against grid_sweep_warm_fused_ref on the L robot's baked
+               field at the mesh slice's size (warm) and at the audit's two
+               sizes (cold), on the JAX bench's 64³ torus field, on a 192³
+               field (past the TPU's VMEM budget), and batched at B = 64,
+               also against K3 launched per scenario;
   3. plan    — PlannerManager.plan on the demo-1 scene (RoundedCone body,
                procedural map4), with the launch counters set to 0 just
                before the plan and read just after; then zoom_refine (K4,
@@ -33,11 +39,18 @@ Phases (any failure exits non-zero):
                P = 512 points, max_iters = 24, chunk = 8): make_random_batch
                and batched_solve_chunked at B = 128 and B = 4096,
                batched_solve_audited at B = 128; the launch counters are set
-               to 0 just before the B = 128 solve and read just after.
-With ``--profile`` it then plans once more under torch.profiler and solves the
-B = 4096 batch once more under it, and prints the device's busy share of
-each.  Then it prints the card's name and power limit, one JSON line with the
-kernels' numbers, and as the last line {"ok": true, "device": {...}}.
+               to 0 just before the B = 128 solve and read just after;
+  5. mesh    — a mesh robot: the demo-6 scene (an L-shaped thick prism
+               written as an OBJ file, baked through shape_from_config;
+               procedural map3) through PlannerManager.plan, K3's counter set
+               to 0 just before the plan and read just after; then
+               batched_solve_chunked with the L robot at the bench's width
+               (B = 128), the counter set to 0 just before.
+With ``--profile`` it then plans once more under torch.profiler, solves the
+B = 4096 batch once more under it and plans the mesh scene once more under
+it, and prints the device's busy share of each.  Then it prints the card's
+name and power limit, one JSON line with the kernels' numbers, and as the
+last line {"ok": true, "device": {...}}.
 Without a CUDA card, or without the package beside it, it exits non-zero
 and prints no result.
 """
@@ -46,9 +59,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -185,6 +200,35 @@ def k1_bound_ms(shape, P: int, N: int, coarse_n: int, rounds: int,
 def k4_bound_ms(shape, P: int, N: int, rounds: int):
     return bound_ms(P * k4_ops_per_query(shape, rounds),
                     4 * (P * (3 + 2) + N * (2 + 18)) + 4 * P)
+
+
+# K3 operation count, per query point, read off isdf_torch/csrc/grid_sweep.cu
+# the same way: a trilinear evaluation is grid coordinates (6), the clamp,
+# corner index and fraction per axis (12), 3 weights and 7 lerps (24), the
+# outside term (over 12, squares 5, root 4) and the sum (1)
+OPS_COORD = 6
+OPS_TRI = 12 + 3 + 21 + 12 + 5 + 4 + 1
+OPS_TRI_GRAD = 33        # corner differences, lerps, masks, slope, 3 × 4
+OPS_PLATEAU4 = 13        # k = 4: min 3, tie band 4, run mean 5, shrink 1
+K3_PRE = 2               # warm pre-zoom rounds
+
+
+def k3_ops_per_query(coarse_n: int, rounds: int, k: int = 4) -> int:
+    pose = OPS_PVAJ + OPS_POSE + OPS_REL + OPS_COORD + OPS_TRI
+    scan = coarse_n * (3 + pose)              # time j·step clipped, pose, SDF
+    zooms = (K3_PRE + rounds) * (k * (OPS_CAND + pose) + OPS_PLATEAU4)
+    return scan + zooms + pose + (pose + OPS_TRI_GRAD) + 3
+
+
+def k3_bound_ms(grid, P: int, N: int, coarse_n: int, rounds: int,
+                B: int = 1):
+    """K3's bound: the operations of B·P queries; the bytes of the field and
+    its pooled twin read once and of every scenario's points, warm starts,
+    piece tables and results."""
+    ops = B * P * k3_ops_per_query(coarse_n, rounds)
+    nbytes = (4 * (grid.field.numel() + grid.pooled.numel())
+              + B * (4 * (P * (3 + 1) + N * (2 + 18)) + 4 * P * 5))
+    return bound_ms(ops, nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -533,6 +577,165 @@ def phase_k4(dev, slice_case):
     return records
 
 
+# the mesh robot's slice: demo 6 (isdf_tpu/demos.py:31-59 _COMMON and
+# :139-149) with its Lthick.obj replaced by a synthetic thick L (the
+# reference's mesh assets are not in the repo), baked at selfmapresu; its
+# procedural map3 (three slit walls); start (5, 5, 5), goal (40, 5, 5)
+DEMO6 = dict(DEMO1, poly_params=(0.0,) * 6, kernel_size=17, safety_hor=0.6)
+START6, GOAL6 = (5.0, 5.0, 5.0), (40.0, 5.0, 5.0)
+
+
+def write_l_robot(dirpath: str) -> str:
+    """The stand-in body as an OBJ file → its path: an L of arms 1.6 m (x)
+    and 1.0 m (y), 0.3 m thick, 20 outward triangles (shapes/mesh.l_prism)."""
+    from isdf_torch.shapes import mesh as meshlib
+
+    path = os.path.join(dirpath, "Lthick.obj")
+    meshlib.write_obj(path, *meshlib.l_prism())
+    return path
+
+
+def torus_grid(torch, n: int, res: float, dev):
+    """The JAX bench's torus field (bench.py:198-205: ring 0.6, tube 0.25)
+    on an n³ grid of spacing res centred on the origin → GridField."""
+    from isdf_torch.sweep.grid_zoom import GridField
+
+    origin = -0.5 * n * res
+    ax = origin + torch.arange(n, dtype=torch.float64, device=dev) * res
+    x, y, z = torch.meshgrid(ax, ax, ax, indexing="ij")
+    xy = torch.sqrt(x * x + y * y) - 0.6
+    return GridField.build(torch.sqrt(xy * xy + z * z) - 0.25,
+                           (origin,) * 3, res, dev)
+
+
+def hold_k3(grid, params, args, kw, label, plain_reps: int = 10,
+            batched: bool = False):
+    """One K3 case against its plain version on the card → its record."""
+    import torch
+    from isdf_torch.sweep import grid_zoom
+
+    kern, plain = ((grid_zoom.grid_sweep_warm_fused_batched,
+                    grid_zoom.grid_sweep_warm_fused_batched_ref) if batched
+                   else (grid_zoom.grid_sweep_warm_fused,
+                         grid_zoom.grid_sweep_warm_fused_ref))
+    pts, durs = args[0], args[3]
+    what = f"K3 {label}"
+    tk, dk, gk = kern(grid, params, *args, **kw)
+    tr, dr, gr = plain(grid, params, *args, **kw)
+    torch.cuda.synchronize()
+    max_d, share, g_err, checks = in_bands(what, tk, dk, gk, tr, dr, gr)
+    ms = cuda_ms(lambda: kern(grid, params, *args, **kw))
+    plain_ms = cuda_ms(lambda: plain(grid, params, *args, **kw), warmup=1,
+                       reps=plain_reps)
+    B = pts.shape[0] if batched else 1
+    P = pts.shape[-2]
+    bound, bound_by, ops, nbytes = k3_bound_ms(
+        grid, P, durs.shape[-1], kw["coarse_n"], kw["rounds"], B=B)
+    rec = dict(case=label, field=list(grid.dims), B=B, P=P,
+               N=durs.shape[-1], coarse_n=kw["coarse_n"],
+               rounds=kw["rounds"], cold=bool((args[1] == 0).all()),
+               max_abs_d=max_d, t_share=share, max_abs_grad=g_err,
+               t_equal=float((tk == tr).float().mean()),
+               d_equal=float((dk == dr).float().mean()),
+               grad_equal=float((gk == gr).float().mean()),
+               max_abs_t=float((tk - tr).abs().max()), ms=ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, ops=ops,
+               bytes=nbytes)
+    print("K3 vs plain " + json.dumps(rec), flush=True)
+    for ok, msg in checks:
+        check_kernel(ok, msg)
+    return rec
+
+
+def phase_k3(dev, obj_path):
+    """K3 against grid_sweep_warm_fused_ref: the L robot's field at the mesh
+    slice's size (warm) and the audit's (cold, coarse 256 and 2048), the JAX
+    bench's grid case (64³ torus at 0.04 m, P = 32,768, N = 6, coarse 64,
+    rounds 12), a 192³ field (28 MB in float32, past the TPU kernel's 8 MiB
+    budget) on the slice's points, and batched at B = 64 × P = 512, also
+    bit for bit against K3 launched per scenario → records."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.core import flatness as fl, minco
+    from isdf_torch.shapes import shape_from_config
+    from isdf_torch.sweep import grid_zoom
+
+    conf = Config(**DEMO6, inputdata=obj_path)
+    grid = shape_from_config(conf, device=dev).grid
+    params = fl.FlatParams.from_config(conf)
+    f32 = dict(dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(3)
+
+    def traj_args(N, start, goal, T, pts_np, cold, q=None):
+        head = np.zeros((3, 3))
+        head[:, 0] = start
+        tail = np.zeros((3, 3))
+        tail[:, 0] = goal
+        if q is None:
+            line = np.linspace(start, goal, N + 1)[1:-1]
+            q = line + rng.normal(scale=1.0, size=line.shape)
+        Tt = torch.as_tensor(T, **f32)
+        coeffs = minco.solve(torch.as_tensor(q, **f32), Tt,
+                             torch.as_tensor(head, **f32),
+                             torch.as_tensor(tail, **f32))
+        P = len(pts_np)
+        tw = (torch.zeros(P, **f32) if cold else torch.as_tensor(
+            rng.uniform(0, float(Tt.sum()), size=P), **f32))
+        return (torch.as_tensor(pts_np, **f32), tw,
+                (torch.cumsum(Tt, 0) - Tt).contiguous(), Tt.contiguous(),
+                coeffs.contiguous())
+
+    # the mesh slice: 12 pieces from START6 to GOAL6, P = max_obstacle_points
+    # voxels within 2 m of the path
+    N = 12
+    T = rng.uniform(2.0, 3.0, size=N)
+    line = np.linspace(START6, GOAL6, N + 1)[1:-1]
+    q = line + rng.normal(scale=1.0, size=line.shape)
+    pts = (np.linspace(START6, GOAL6, 4096)
+           + rng.uniform(-2.0, 2.0, size=(4096, 3)))
+    warm = traj_args(N, START6, GOAL6, T, pts, False, q)
+    cold = (warm[0], torch.zeros_like(warm[1])) + warm[2:]
+    # the JAX bench's grid case (bench.py:69-91,195-219)
+    Nb = 6
+    qb = (np.linspace(1, 9, Nb - 1)[:, None] * np.array([1.0, 0.3, 0.15])
+          + rng.normal(scale=0.3, size=(Nb - 1, 3)))
+    bench = traj_args(Nb, (0.0, 0.0, 0.0), (10.0, 3.0, 1.5),
+                      rng.uniform(1.2, 2.2, size=Nb),
+                      rng.uniform(-1, 11, size=(32768, 3)), False, qb)
+    records = []
+    for label, g, args, coarse_n, rounds in (
+            ("L/slice", grid, warm, 128, 24),
+            ("L/audit256", grid, cold, 256, 24),
+            ("L/audit2048", grid, cold, 2048, 24),
+            ("torus64/bench", torus_grid(torch, 64, 0.04, dev), bench, 64,
+             12),
+            ("torus192/slice", torus_grid(torch, 192, 2.56 / 192, dev), warm,
+             128, 24)):
+        kw = dict(coarse_n=coarse_n, rounds=rounds, warm_window=0.3)
+        records.append(hold_k3(g, params, args, kw, label,
+                               plain_reps=3 if coarse_n > 256 else 10))
+    # batched: make_random_batch's scenarios as K2's phase draws them
+    _, bparams, bargs, kw = batched_kernel_inputs(torch, "CappedCone", 64,
+                                                  dev, seed=1)
+    bargs = tuple(a for i, a in enumerate(bargs) if i != 2)   # no pose table
+    rec = hold_k3(grid, bparams, bargs, kw, "L/B64", plain_reps=1,
+                  batched=True)
+    tk, dk, gk = grid_zoom.grid_sweep_warm_fused_batched(grid, bparams,
+                                                         *bargs, **kw)
+    per = [grid_zoom.grid_sweep_warm_fused(
+        grid, bparams, *(a[b] for a in bargs), **kw) for b in range(64)]
+    torch.cuda.synchronize()
+    t1, d1, g1 = (torch.stack(o) for o in zip(*per))
+    rec["equals_per_scenario_k3"] = bool(
+        torch.equal(tk, t1) and torch.equal(dk, d1) and torch.equal(gk, g1))
+    print(f"K3 L/B64 equals K3 launched per scenario: "
+          f"{rec['equals_per_scenario_k3']}", flush=True)
+    check_kernel(rec["equals_per_scenario_k3"],
+                 "K3 L/B64: differs from K3 launched per scenario")
+    records.append(rec)
+    return records
+
+
 def phase_plan(dev):
     """PlannerManager.plan on the demo-1 scene → (metrics, K1 launches, the
     manager, the trajectory)."""
@@ -671,11 +874,11 @@ def device_busy(prof, wall: float, kernel_word: str) -> dict:
                 sweep_kernel_s=k_ns * 1e-9)
 
 
-def phase_profile(pm, batch_case) -> None:
-    """``--profile``: one more demo-1 plan (warm: A* already built) and one
-    more B = 4096 batched solve, each under torch.profiler tracing the card
-    only → the device's busy share of each one's wall time, and the sweep
-    kernel's part of the busy time."""
+def phase_profile(pm, batch_case, pm_mesh) -> None:
+    """``--profile``: one more demo-1 plan (warm: A* already built), one
+    more B = 4096 batched solve and one more mesh plan, each under
+    torch.profiler tracing the card only → the device's busy share of each
+    one's wall time, and the sweep kernel's part of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from isdf_torch.parallel import batch as pb
@@ -686,6 +889,9 @@ def phase_profile(pm, batch_case) -> None:
                                  max_iters=MAX_ITERS)),
         ("batch B=4096", lambda: pb.batched_solve_chunked(
             shape, conf, sb, max_iters=BATCH_ITERS, chunk=BATCH_CHUNK)),
+        ("mesh plan", lambda: pm_mesh.plan(np.asarray(START6),
+                                           np.asarray(GOAL6),
+                                           max_iters=MAX_ITERS)),
     )
     for label, run in runs:
         torch.cuda.synchronize()
@@ -694,7 +900,8 @@ def phase_profile(pm, batch_case) -> None:
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        got = device_busy(prof, wall, "sweep_warm")
+        got = device_busy(prof, wall, "grid_sweep" if label == "mesh plan"
+                          else "sweep_warm")
         if not got:
             print(f"profile {label}: the profiler recorded no device events;"
                   " device busy share not measured", flush=True)
@@ -829,10 +1036,139 @@ def phase_batch(dev):
     return launches_main, big_case
 
 
-def kernel_line(name, replaces, launches, max_abs_err, rec):
+def phase_mesh_plan(dev, obj_path):
+    """PlannerManager.plan on the demo-6 scene with the L robot → (metrics,
+    K3 launches, the manager).  K3 must launch once per back-end cost
+    evaluation and once per audit sweep."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.plan import PlannerManager
+    from isdf_torch.shapes import shape_from_config
+    from isdf_torch.sweep import grid_zoom
+    from isdf_torch.world import GridMap, maps_gen
+
+    conf = Config(**DEMO6, inputdata=obj_path)
+    t0 = time.perf_counter()
+    shape = shape_from_config(conf, device=dev)
+    pm = PlannerManager(conf, shape=shape, device=dev)
+    cloud = maps_gen.map3(res=0.8, seed=0)
+    gm = GridMap.from_points(cloud, None, conf.occupancy_resolution,
+                             conf.sta_threshold, device=dev)
+    pm.set_map(gm)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"mesh plan: field {shape.grid.dims} (pooled "
+          f"{shape.grid.pooled_dims}) at {conf.selfmapresu} m, map "
+          f"{tuple(gm.occ.shape)} voxels from {len(cloud)} points, pose "
+          f"kernels {tuple(pm.pose_kernels.kernels.shape)}, set-up "
+          f"{setup_s:.2f} s; back-end max_iters cap {MAX_ITERS}", flush=True)
+
+    grid_zoom.LAUNCHES_GRID = 0
+    t0 = time.perf_counter()
+    res = pm.plan(np.asarray(START6), np.asarray(GOAL6), max_iters=MAX_ITERS)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    launches = grid_zoom.LAUNCHES_GRID
+
+    m = res.metrics
+    check(res.success, f"mesh plan failed: {m}")
+    cost = float(m["final_cost"])
+    replans = m.get("safety_replans", 0)
+    # an audit sweep before every re-solve, and one more unless the last
+    # round's re-solve ended the loop
+    audits = min(replans + 1, conf.safety_replan_rounds)
+    print(f"mesh plan: success={res.success} n_pieces={m['n_pieces']} "
+          f"mid_end iters={m['mid_end_iters']} evals={m['mid_end_evals']} "
+          f"back_end iters={m['back_end_iters']} evals={m['back_end_evals']} "
+          f"safety_replans={replans}", flush=True)
+    print(f"mesh plan: final_cost={cost!r} total_duration="
+          f"{m['total_duration']!r}", flush=True)
+    phases = {k: m[k] for k in ("front_end_s", "aabb_s", "mid_end_s",
+                                "back_end_s", "audit_s") if k in m}
+    print("mesh plan: seconds " + json.dumps(dict(phases, plan_s=plan_s,
+                                                  setup_s=setup_s)),
+          flush=True)
+    traj = res.traj
+    check(math.isfinite(cost), f"mesh plan: non-finite final cost {cost}")
+    check(bool(torch.isfinite(traj.coeffs).all())
+          and bool(torch.isfinite(traj.durations).all()),
+          "mesh plan: non-finite trajectory")
+    ends = traj.junction_positions()[[0, -1]].cpu().numpy()
+    reach = 6 * np.sqrt(3) * conf.occupancy_resolution   # snap radius
+    check(np.linalg.norm(ends[0] - START6) <= reach
+          and np.linalg.norm(ends[1] - GOAL6) <= reach,
+          f"mesh plan: ends {ends.tolist()} far from {START6} → {GOAL6}")
+    min_sdf = pm.audit_collision(traj)
+    print(f"mesh plan: audit min swept SDF = {min_sdf!r}", flush=True)
+    print(f"mesh plan: K3 launches in the plan = {launches} "
+          f"({m['back_end_evals']} back-end evaluations + {audits} audit "
+          f"sweeps)", flush=True)
+    check(launches > 0, "the mesh plan never launched K3")
+    check(launches == m["back_end_evals"] + audits,
+          f"mesh plan: {launches} K3 launches, expected "
+          f"{m['back_end_evals']} + {audits}")
+    check(math.isfinite(min_sdf), "mesh plan: non-finite audit SDF")
+    return m, launches, pm
+
+
+def phase_mesh_batch(dev, shape):
+    """batched_solve_chunked with the L robot at the bench's width (B = 128,
+    N = 4, P = 512, max_iters = 24, chunk = 8) → its record."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.parallel import batch as pb
+    from isdf_torch.sweep import grid_zoom
+
+    conf = Config(**BATCH_CONF)
+    B = 128
+    trips = 2 * BATCH_CHUNK + 8
+    sb = pb.make_random_batch(conf, B, N=BATCH_N, n_points=BATCH_P, seed=0)
+    f0, g0 = pb.batched_cost_and_grad(shape, conf, sb)
+    chunks = [1]
+
+    def between(res):
+        chunks[0] += not bool(res.converged.all())
+
+    grid_zoom.LAUNCHES_GRID = 0
+    t0 = time.perf_counter()
+    coeffs, T, costs, iters = pb.batched_solve_chunked(
+        shape, conf, sb, max_iters=BATCH_ITERS, chunk=BATCH_CHUNK,
+        callback=between)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = grid_zoom.LAUNCHES_GRID
+    what = "mesh batch B=128"
+    for name, v in (("coeffs", coeffs), ("T", T), ("costs", costs),
+                    ("first costs", f0), ("first gradient", g0)):
+        check(bool(torch.isfinite(v).all()), f"{what}: non-finite {name}")
+    ratio = costs / f0
+    expect = 1 + 2 * trips * chunks[0]
+    rec = dict(B=B, N=BATCH_N, P=BATCH_P, max_iters=BATCH_ITERS,
+               chunk=BATCH_CHUNK, chunks=chunks[0],
+               loop_trips=trips * chunks[0], k3_launches=launches,
+               wall_s=wall, plans_per_s=B / wall,
+               accepted_steps_mean=float(iters.float().mean()),
+               no_accepted_step=int((iters == 0).sum()),
+               cost_ratio_max=float(ratio.max()),
+               cost_ratio_median=float(ratio.median()),
+               cost_first_median=float(f0.median()),
+               cost_final_median=float(costs.median()))
+    print("mesh batch " + json.dumps(rec), flush=True)
+    check(launches == expect, f"{what}: {launches} K3 launches, the "
+                              f"lockstep schedule implies {expect}")
+    check(bool((ratio <= 1.0 + COST_RISE).all()),
+          f"{what}: {int((ratio > 1.0 + COST_RISE).sum())} scenarios ended "
+          f"more than {COST_RISE} above their first cost")
+    check(float(ratio.median()) < 1.0, f"{what}: the median cost did not "
+                                       "fall")
+    return rec
+
+
+def kernel_line(name, replaces, launches, max_abs_err, rec,
+                source="isdf_torch/csrc/sweep_warm.cu"):
     return {
-        "name": name, "route": "cuda",
-        "source": "isdf_torch/csrc/sweep_warm.cu", "replaces": replaces,
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
         "launches": launches, "max_abs_err": max_abs_err, "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,
@@ -849,40 +1185,50 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from isdf_torch.sweep import fused_zoom
+        from isdf_torch.sweep import fused_zoom, grid_zoom
     except ImportError as e:
         print(f"chip_smoke: isdf_torch not importable ({e}); run from the "
               "root of the repository", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    workdir = tempfile.TemporaryDirectory()
     try:
         t0 = time.perf_counter()
-        libs = fused_zoom.build()
-        print(f"build: K1, K2 and K4 for {len(libs)} body-SDF kinds "
-              f"({len(libs)} libraries, built in parallel) in "
+        libs = fused_zoom.compile_jobs(fused_zoom.build_jobs()
+                                       + grid_zoom.build_jobs())
+        print(f"build: K1, K2 and K4 for {len(libs) - 1} body-SDF kinds, "
+              f"and K3 ({len(libs)} libraries, built in parallel) in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
+        obj_path = write_l_robot(workdir.name)
         k1_recs, slice_case = phase_kernels(dev)
         k2_recs = phase_k2(dev)
         k4_recs = phase_k4(dev, slice_case)
+        k3_recs = phase_k3(dev, obj_path)
         check(not KERNEL_FAILURES, "; ".join(KERNEL_FAILURES))
         _, k1_launches, pm, traj = phase_plan(dev)
         k4_launches = phase_refine(pm, traj)
         k2_launches, batch_case = phase_batch(dev)
+        _, k3_launches, pm_mesh = phase_mesh_plan(dev, obj_path)
+        phase_mesh_batch(dev, pm_mesh.shape)
         if "--profile" in sys.argv[1:]:
-            phase_profile(pm, batch_case)
+            phase_profile(pm, batch_case, pm_mesh)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        workdir.cleanup()
 
     # K1 at the plan's size and shape; K2 at the B = 128 solve's size, error
     # and times from the same case (the audit's and the B = 4096 case are in
-    # the "K2 vs plain, timed" lines); K4 at the slice's size.  K4 has no caller in the package, as
-    # zoom_refine has none in the JAX package: its path is its own entry
-    # point, driven by phase_refine.
+    # the "K2 vs plain, timed" lines); K4 at the slice's size; K3 at the mesh
+    # slice's size, its launches from the mesh plan.  K4 has no caller in
+    # the package, as zoom_refine has none in the JAX package: its path is
+    # its own entry point, driven by phase_refine.
     k1_main = next(r for r in k1_recs
                    if r["size"] == "slice" and r["shape"] == "RoundedCone")
     k2_main = next(r for r in k2_recs if r.get("ms") and r["B"] == 128)
     k4_main = next(r for r in k4_recs if r["shape"] == "RoundedCone")
+    k3_main = next(r for r in k3_recs if r["case"] == "L/slice")
     kernels = [
         kernel_line("sweep_warm_fused", "isdf_tpu/sweep/pallas_zoom.py:414",
                     k1_launches, max(r["max_abs_d"] for r in k1_recs),
@@ -893,6 +1239,10 @@ def main() -> int:
         kernel_line("zoom_refine", "isdf_tpu/sweep/pallas_zoom.py:213",
                     k4_launches, max(r["max_abs_d"] for r in k4_recs),
                     k4_main),
+        kernel_line("grid_sweep_warm_fused",
+                    "isdf_tpu/sweep/pallas_grid_zoom.py:311", k3_launches,
+                    max(r["max_abs_d"] for r in k3_recs), k3_main,
+                    source="isdf_torch/csrc/grid_sweep.cu"),
     ]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

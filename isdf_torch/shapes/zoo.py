@@ -47,13 +47,16 @@ class Shape:
     ``sdf`` maps points (..., 3) to distances (...); ``sdf3`` is the
     component form (px, py, pz) → d; ``spec`` the device description the
     CUDA sweep kernels evaluate (every zoo shape has one; None on a shape
-    built by hand means the kernels cannot take it)."""
+    built by hand means the kernels cannot take it).  A mesh robot
+    (shapes/gridsdf.py) has ``spec=None`` and carries its baked voxel field
+    in ``grid`` (sweep/grid_zoom.GridField), which the sweep sends to K3."""
 
     name: str
     sdf: Callable
     bounds: Tuple[float, float, float]
     sdf3: Optional[Callable] = field(default=None, compare=False)
     spec: Optional[sp.ShapeSpec] = field(default=None, compare=False)
+    grid: Optional[object] = field(default=None, compare=False)
 
     def sdf3_fn(self) -> Callable:
         if self.sdf3 is not None:

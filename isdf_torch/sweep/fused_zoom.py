@@ -47,6 +47,7 @@ LAUNCHES_ZOOM = 0       # K4, zoom_refine
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "sweep_warm.cu"
+HEADER = _PKG / "csrc" / "pose_chain.cuh"     # included by every source
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: the kernels round op by op as their plain versions do (see the
 # note in sweep_warm.cu); no --use_fast_math
@@ -75,8 +76,62 @@ def _nvcc() -> str:
         exe = "/usr/local/cuda/bin/nvcc"
     if exe is None:
         raise RuntimeError("nvcc not found: the sweep kernels are built "
-                           "from isdf_torch/csrc/sweep_warm.cu at first use")
+                           "from isdf_torch/csrc/ at first use")
     return exe
+
+
+def source_tag(source: Path) -> str:
+    """Version of a kernel source: its bytes, the shared header's and the
+    compiler flags."""
+    blob = source.read_bytes() + HEADER.read_bytes() + " ".join(
+        NVCC_FLAGS).encode()
+    return hashlib.sha1(blob).hexdigest()[:12]
+
+
+def build_jobs(kinds: Optional[Iterable[int]] = None):
+    """The compile jobs of the K1/K2/K4 libraries: one (label, source,
+    defines, output) per body-SDF kind in ``kinds`` (default: all)."""
+    tag = source_tag(SOURCE)
+    return [(f"kind {k}", SOURCE, [f"-DSDF_KIND={k}"],
+             BUILD_DIR / f"sweep_warm_k{k}_{tag}.so")
+            for k in (KINDS if kinds is None else kinds)]
+
+
+def compile_jobs(jobs) -> Dict[str, Path]:
+    """Compile every job whose library is not yet built, one nvcc process
+    each, all started together → {label: library path}."""
+    out = {label: lib for label, _, _, lib in jobs}
+    todo = [j for j in jobs if not j[3].exists()]
+    if not todo:
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    try:
+        for label, source, defines, lib in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            procs.append((label, source, lib, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *defines, "-o", tmp, str(source)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True)))
+        errors = []
+        for label, source, lib, tmp, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{source.name}, {label}:\n{err}")
+            else:
+                os.replace(tmp, lib)
+        if errors:
+            raise RuntimeError("nvcc failed to build " + "\n".join(errors))
+    finally:
+        for _, _, _, tmp, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return out
 
 
 def build(kinds: Optional[Iterable[int]] = None) -> Dict[int, Path]:
@@ -84,42 +139,8 @@ def build(kinds: Optional[Iterable[int]] = None) -> Dict[int, Path]:
     that is not yet built for this source version → {kind: path}.  One nvcc
     process per kind, all started together."""
     kinds = tuple(KINDS if kinds is None else kinds)
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = {k: BUILD_DIR / f"sweep_warm_k{k}_{tag}.so" for k in kinds}
-    todo = [k for k in kinds if not out[k].exists()]
-    if not todo:
-        return out
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    try:
-        for k in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            procs.append((k, tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, f"-DSDF_KIND={k}", "-o", tmp,
-                 str(SOURCE)],
-                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-                text=True)))
-        errors = []
-        for k, tmp, proc in procs:
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"kind {k}:\n{err}")
-            else:
-                os.replace(tmp, out[k])
-        if errors:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name}, "
-                               + "\n".join(errors))
-    finally:
-        for _, tmp, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return out
+    libs = compile_jobs(build_jobs(kinds))
+    return {k: libs[f"kind {k}"] for k in kinds}
 
 
 def _load(kind: int) -> ctypes.CDLL:

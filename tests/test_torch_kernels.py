@@ -1,4 +1,4 @@
-"""K1, K2 and K4 on the card against their plain PyTorch versions.
+"""K1, K2, K3 and K4 on the card against their plain PyTorch versions.
 
 This file imports neither JAX nor isdf_tpu, so it also runs where JAX is
 not installed (tests/conftest.py imports JAX; leave it out there):
@@ -19,8 +19,9 @@ from isdf_torch.core.poly import PolyTraj
 from isdf_torch.shapes import SHAPE_REGISTRY, make_shape
 from isdf_torch.shapes.spec import KINDS
 from isdf_torch.shapes.zoo import Shape
-from isdf_torch.sweep import fused_zoom
-from isdf_torch.sweep.sweep_sdf import traj_states
+from isdf_torch.sweep import fused_zoom, grid_zoom
+from isdf_torch.shapes.gridsdf import grid_shape
+from isdf_torch.sweep.sweep_sdf import sweep_sdf, sweep_sdf_warm, traj_states
 
 F32 = torch.float32
 D_ATOL, D_RTOL, G_ATOL, T_AGREE = 2e-4, 1e-4, 1e-3, 1e-4
@@ -248,3 +249,134 @@ def test_zoom_kernel_matches_plain_version_on_card(name):
                                     coeffs)
     torch.cuda.synchronize()
     assert float(((tk - tr).abs() < T_AGREE).float().mean()) >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# K3, the grid (mesh robot) sweep
+
+def _grid_inputs(dev, P=2048, N=5, seed=0, n=40, res=0.06):
+    """A torus field (ring 0.6, tube 0.25) of n³ voxels centred on the
+    origin, and K1's trajectory and points without the pose table."""
+    origin = -0.5 * (n - 1) * res
+    ax = origin + np.arange(n) * res
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    field = np.sqrt((np.sqrt(x * x + y * y) - 0.6) ** 2 + z * z) - 0.25
+    grid = grid_zoom.GridField.build(field, (origin,) * 3, res, dev)
+    _, params, (pts, tw, _, starts, durs, coeffs) = _inputs(
+        "Ball", dev, P=P, N=N, seed=seed)
+    return grid, params, (pts, tw, starts, durs, coeffs)
+
+
+def test_grid_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(fused_zoom.shutil, "which", lambda name: None)
+    monkeypatch.setattr(fused_zoom.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(fused_zoom, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        grid_zoom.build()
+
+
+def test_grid_kernel_builds_beside_the_others(monkeypatch, tmp_path):
+    """K3's library is one more job of the same parallel build: one nvcc
+    process for grid_sweep.cu with no defines, started with the kinds'."""
+    started = []
+
+    class FakeProc:
+        def __init__(self, cmd, **kw):
+            self.cmd, self.returncode = cmd, None
+            started.append(self)
+
+        def communicate(self):
+            assert len(started) == len(KINDS) + 1
+            self.returncode = 0
+            return "", ""
+
+        def poll(self):
+            return self.returncode
+
+    monkeypatch.setattr(fused_zoom, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(fused_zoom, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(fused_zoom.subprocess, "Popen", FakeProc)
+    libs = fused_zoom.compile_jobs(fused_zoom.build_jobs()
+                                   + grid_zoom.build_jobs())
+    k3 = [p for p in started if str(grid_zoom.SOURCE) in p.cmd]
+    assert len(k3) == 1
+    assert not any(a.startswith("-D") for a in k3[0].cmd)
+    assert libs["K3"].exists() and libs["K3"].parent == tmp_path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coarse_n,cold", [(64, False), (256, True),
+                                           (2048, True)])
+def test_grid_kernel_matches_plain_version_on_card(coarse_n, cold):
+    """K3 warm (coarse 64, rounds 12) and as the audit runs it (t_warm = 0,
+    window 0.3, rounds 24) against grid_sweep_warm_fused_ref: d* within
+    2e-4 + 1e-4·|d|, t* within 1e-4 on ≥ 99 % of the points, the gradient
+    within 1e-3 there; one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python3 chip_smoke.py runs K3 too)")
+    grid, params, (pts, tw, *rest) = _grid_inputs(torch.device("cuda"))
+    args = (pts, torch.zeros_like(tw) if cold else tw, *rest)
+    kw = dict(coarse_n=coarse_n, rounds=24 if cold else 12, warm_window=0.3)
+    before = grid_zoom.LAUNCHES_GRID
+    tk, dk, gk = grid_zoom.grid_sweep_warm_fused(grid, params, *args, **kw)
+    assert grid_zoom.LAUNCHES_GRID == before + 1
+    tr, dr, gr = grid_zoom.grid_sweep_warm_fused_ref(grid, params, *args,
+                                                     **kw)
+    torch.cuda.synchronize()
+    assert torch.all((dk - dr).abs() <= D_ATOL + D_RTOL * dr.abs())
+    ok = (tk - tr).abs() < T_AGREE
+    assert float(ok.float().mean()) >= 0.99
+    assert float((gk - gr).abs()[ok].max()) <= G_ATOL
+
+
+@pytest.mark.cuda
+def test_grid_batched_kernel_matches_per_scenario_launches_on_card():
+    """K3 over B = 8 scenarios in one launch against K3 launched per
+    scenario (exact: the same device code on the same inputs) and against
+    its plain version (the bands above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python3 chip_smoke.py runs K3 too)")
+    dev = torch.device("cuda")
+    per = [_grid_inputs(dev, P=512, N=4, seed=10 + b) for b in range(8)]
+    grid, params, _ = per[0]
+    args = tuple(torch.stack([p[2][i] for p in per]).contiguous()
+                 for i in range(5))
+    before = grid_zoom.LAUNCHES_GRID
+    tk, dk, gk = grid_zoom.grid_sweep_warm_fused_batched(grid, params, *args)
+    assert grid_zoom.LAUNCHES_GRID == before + 1
+    for b, (_, _, a1) in enumerate(per):
+        t1, d1, g1 = grid_zoom.grid_sweep_warm_fused(grid, params, *a1)
+        assert torch.equal(tk[b], t1) and torch.equal(dk[b], d1)
+        assert torch.equal(gk[b], g1)
+    tr, dr, gr = grid_zoom.grid_sweep_warm_fused_batched_ref(grid, params,
+                                                             *args)
+    torch.cuda.synchronize()
+    assert torch.all((dk - dr).abs() <= D_ATOL + D_RTOL * dr.abs())
+    ok = (tk - tr).abs() < T_AGREE
+    assert float(ok.float().mean()) >= 0.99
+    assert float((gk - gr).abs()[ok].max()) <= G_ATOL
+
+
+@pytest.mark.cuda
+def test_grid_branches_launch_the_kernel_on_card(monkeypatch):
+    """A grid shape's warm and cold sweeps on CUDA tensors launch K3 once
+    each and never run its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python3 chip_smoke.py runs K3 too)")
+    dev = torch.device("cuda")
+    grid, params, (pts, tw, _, durs, coeffs) = _grid_inputs(dev, P=256)
+    shape = grid_shape("torus", grid.field, grid.origin, grid.res,
+                       device=dev)
+    traj = PolyTraj(durs, coeffs)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(grid_zoom, "grid_sweep_warm_fused_ref", refuse)
+    before = grid_zoom.LAUNCHES_GRID
+    s, t, g = sweep_sdf_warm(shape, traj, params, pts, tw)
+    sc, tc, gc = sweep_sdf(shape, traj, params, pts)
+    torch.cuda.synchronize()
+    assert grid_zoom.LAUNCHES_GRID == before + 2
+    for a in (s, t, g, sc, tc, gc):
+        assert a.is_cuda and bool(torch.isfinite(a).all())
