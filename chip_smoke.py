@@ -9,9 +9,12 @@ Phases (any failure exits non-zero):
   1. build   — compile every kernel from the sources, all nvcc processes
                started together (K1, K2 and K4: isdf_torch/csrc/sweep_warm.cu,
                one library per body-SDF kind; K3: isdf_torch/csrc/
-               grid_sweep.cu) and print the seconds;
+               grid_sweep.cu), print the seconds and the registers and
+               spills ptxas reports for every kernel;
   2. kernels — hold each kernel against its plain PyTorch version on the card
-               and time both with CUDA events:
+               and time both (the kernel's device time from torch.profiler
+               and its call with CUDA events, the plain version's call with
+               CUDA events):
                K1 against sweep_warm_fused_ref for RoundedCone (posed), Ball
                and CappedCone, at the slice's size, at the JAX bench's size
                and at the audit's two sizes, and for the other 17 zoo shapes
@@ -46,9 +49,11 @@ Phases (any failure exits non-zero):
                to 0 just before the plan and read just after; then
                batched_solve_chunked with the L robot at the bench's width
                (B = 128), the counter set to 0 just before.
-With ``--profile`` it then plans once more under torch.profiler, solves the
-B = 4096 batch once more under it and plans the mesh scene once more under
-it, and prints the device's busy share of each.  Then it prints the card's
+Phases 3–5 run before phase 2: a process that has run the kernel phase's
+torch.profiler traces planned and solved more slowly after them (PERF.md
+§6).  With ``--profile`` it then plans once more under torch.profiler,
+solves the B = 4096 batch once more under it and plans the mesh scene once
+more under it, and prints the device's busy share of each.  Then it prints the card's
 name and power limit, one JSON line with the kernels' numbers, and as the
 last line {"ok": true, "device": {...}}.
 Without a CUDA card, or without the package beside it, it exits non-zero
@@ -213,19 +218,26 @@ OPS_PLATEAU4 = 13        # k = 4: min 3, tie band 4, run mean 5, shrink 1
 K3_PRE = 2               # warm pre-zoom rounds
 
 
-def k3_ops_per_query(coarse_n: int, rounds: int, k: int = 4) -> int:
+def k3_ops(B: int, P: int, coarse_n: int, rounds: int, k: int = 4) -> int:
+    """K3's operations for B scenarios of P queries.  The coarse poses are a
+    function of the time alone: once per scenario and coarse time (the
+    clipped time j·step, the piece's pos/vel/acc and the tilt), as the
+    plain version computes them; per query and coarse time p_rel and the
+    pooled trilinear value."""
     pose = OPS_PVAJ + OPS_POSE + OPS_REL + OPS_COORD + OPS_TRI
-    scan = coarse_n * (3 + pose)              # time j·step clipped, pose, SDF
+    per_scenario = coarse_n * (3 + OPS_PVAJ + OPS_POSE)
+    scan = coarse_n * (OPS_REL + OPS_COORD + OPS_TRI)
     zooms = (K3_PRE + rounds) * (k * (OPS_CAND + pose) + OPS_PLATEAU4)
-    return scan + zooms + pose + (pose + OPS_TRI_GRAD) + 3
+    per_query = scan + zooms + pose + (pose + OPS_TRI_GRAD) + 3
+    return B * (per_scenario + P * per_query)
 
 
 def k3_bound_ms(grid, P: int, N: int, coarse_n: int, rounds: int,
                 B: int = 1):
-    """K3's bound: the operations of B·P queries; the bytes of the field and
-    its pooled twin read once and of every scenario's points, warm starts,
-    piece tables and results."""
-    ops = B * P * k3_ops_per_query(coarse_n, rounds)
+    """K3's bound: the operations of :func:`k3_ops`; the bytes of the field
+    and its pooled twin read once and of every scenario's points, warm
+    starts, piece tables and results."""
+    ops = k3_ops(B, P, coarse_n, rounds)
     nbytes = (4 * (grid.field.numel() + grid.pooled.numel())
               + B * (4 * (P * (3 + 1) + N * (2 + 18)) + 4 * P * 5))
     return bound_ms(ops, nbytes)
@@ -249,6 +261,46 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_ms(fn, kernel_word: str, warmup: int = 3, reps: int = 10,
+              tries: int = 3):
+    """Median device milliseconds of the kernel whose name holds
+    kernel_word, over reps runs of fn(), read off torch.profiler's CUDA
+    trace: the kernel's own time, without the host work of its wrapper (a
+    CUDA-event pair around one call also times the wrapper's checks,
+    allocations and launch, ~0.1 ms).  Now and then a trace comes back
+    without the card's events, so a trace is taken up to `tries` times.
+    → None if none of them recorded such a kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs = [(e.end_ns() - e.start_ns()) * 1e-6
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA
+                and kernel_word in e.name()]
+        if durs:
+            return statistics.median(durs)
+    return None
+
+
+def timed(fn, kernel_word: str, what: str) -> dict:
+    """A kernel call's times: ``ms``, the kernel's device time
+    (:func:`kernel_ms`), and ``call_ms``, one call timed with CUDA events,
+    wrapper included.  A kernel the profiler did not see fails the check."""
+    call = cuda_ms(fn)
+    dev = kernel_ms(fn, kernel_word)
+    check_kernel(dev is not None,
+                 f"{what}: torch.profiler recorded no {kernel_word}")
+    return dict(ms=dev, call_ms=call)
 
 
 def kernel_inputs(torch, traj, params, pts, t_warm, coarse_n):
@@ -377,15 +429,15 @@ def hold_k1(shape, params, args, kw, size_name, plain_reps: int = 10):
     tr, dr, gr = fused_zoom.sweep_warm_fused_ref(shape, params, *args, **kw)
     torch.cuda.synchronize()
     max_d, share, g_err, checks = in_bands(what, tk, dk, gk, tr, dr, gr)
-    ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused(
-        shape, params, *args, **kw))
+    times = timed(lambda: fused_zoom.sweep_warm_fused(
+        shape, params, *args, **kw), "sweep_warm_kernel", what)
     plain_ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused_ref(
         shape, params, *args, **kw), warmup=1, reps=plain_reps)
     bound, bound_by, ops, nbytes = k1_bound_ms(
         shape, pts.shape[0], durs.shape[0], kw["coarse_n"], kw["rounds"])
     rec = dict(size=size_name, shape=shape.name, P=pts.shape[0],
                N=durs.shape[0], coarse_n=kw["coarse_n"], rounds=kw["rounds"],
-               max_abs_d=max_d, t_share=share, max_abs_grad=g_err, ms=ms,
+               max_abs_d=max_d, t_share=share, max_abs_grad=g_err, **times,
                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, ops=ops,
                bytes=nbytes)
     print("K1 vs plain " + json.dumps(rec), flush=True)
@@ -485,8 +537,8 @@ def phase_k2(dev):
         what = f"K2 CappedCone/{label}"
         tk, dk, gk = fused_zoom.sweep_warm_fused_batched(
             shape, params, *args, **kw)
-        ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused_batched(
-            shape, params, *args, **kw))
+        times = timed(lambda: fused_zoom.sweep_warm_fused_batched(
+            shape, params, *args, **kw), "sweep_warm_kernel", what)
         # the plain version is a loop over the scenarios (~50 ms each): one
         # timed run of all of them at B = 128, whose results are the ones
         # compared; at B = 4096 the first, the last and three scenarios
@@ -513,7 +565,7 @@ def phase_k2(dev):
         rec = dict(shape="CappedCone", case=label, B=B, P=BATCH_P, N=BATCH_N,
                    coarse_n=kw["coarse_n"], rounds=kw["rounds"], cold=cold,
                    compared_scenarios=len(tr), max_abs_d=max_d,
-                   t_share=share, max_abs_grad=g_err, ms=ms,
+                   t_share=share, max_abs_grad=g_err, **times,
                    plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                    ops=ops, bytes=nbytes)
         records.append(rec)
@@ -557,15 +609,15 @@ def phase_k4(dev, slice_case):
         check(bool(torch.isfinite(tk).all()), f"{what}: non-finite t*")
         share = float(((tk - tr).abs() < T_AGREE).float().mean())
         dd = (dk - dr).abs()
-        ms = cuda_ms(lambda: fused_zoom.zoom_refine(
-            shape, params, *args, rounds=12))
+        times = timed(lambda: fused_zoom.zoom_refine(
+            shape, params, *args, rounds=12), "zoom_refine_kernel", what)
         plain_ms = cuda_ms(lambda: fused_zoom.zoom_refine_ref(
             shape, params, *args, rounds=12), warmup=1, reps=5)
         bound, bound_by, ops, nbytes = k4_bound_ms(
             shape, pts.shape[0], durs.shape[0], 12)
         rec = dict(shape=shape_name, P=pts.shape[0], N=durs.shape[0],
                    rounds=12, t_share=share, max_abs_d=float(dd.max()),
-                   max_abs_t=float((tk - tr).abs().max()), ms=ms,
+                   max_abs_t=float((tk - tr).abs().max()), **times,
                    plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                    ops=ops, bytes=nbytes)
         records.append(rec)
@@ -624,7 +676,8 @@ def hold_k3(grid, params, args, kw, label, plain_reps: int = 10,
     tr, dr, gr = plain(grid, params, *args, **kw)
     torch.cuda.synchronize()
     max_d, share, g_err, checks = in_bands(what, tk, dk, gk, tr, dr, gr)
-    ms = cuda_ms(lambda: kern(grid, params, *args, **kw))
+    times = timed(lambda: kern(grid, params, *args, **kw),
+                  "grid_sweep_kernel", what)
     plain_ms = cuda_ms(lambda: plain(grid, params, *args, **kw), warmup=1,
                        reps=plain_reps)
     B = pts.shape[0] if batched else 1
@@ -638,7 +691,7 @@ def hold_k3(grid, params, args, kw, label, plain_reps: int = 10,
                t_equal=float((tk == tr).float().mean()),
                d_equal=float((dk == dr).float().mean()),
                grad_equal=float((gk == gr).float().mean()),
-               max_abs_t=float((tk - tr).abs().max()), ms=ms,
+               max_abs_t=float((tk - tr).abs().max()), **times,
                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, ops=ops,
                bytes=nbytes)
     print("K3 vs plain " + json.dumps(rec), flush=True)
@@ -1199,17 +1252,23 @@ def main() -> int:
         print(f"build: K1, K2 and K4 for {len(libs) - 1} body-SDF kinds, "
               f"and K3 ({len(libs)} libraries, built in parallel) in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
+        # what ptxas reports: [kernel, registers, spill stores, spill loads
+        # (bytes), stack frame (bytes)] per library
+        print("build: ptxas " + json.dumps({
+            label: [list(r) for r in fused_zoom.ptxas_report(lib)]
+            for label, lib in libs.items()}), flush=True)
         obj_path = write_l_robot(workdir.name)
-        k1_recs, slice_case = phase_kernels(dev)
-        k2_recs = phase_k2(dev)
-        k4_recs = phase_k4(dev, slice_case)
-        k3_recs = phase_k3(dev, obj_path)
-        check(not KERNEL_FAILURES, "; ".join(KERNEL_FAILURES))
+        # the timed paths first, the kernel phase's profiler traces after
         _, k1_launches, pm, traj = phase_plan(dev)
         k4_launches = phase_refine(pm, traj)
         k2_launches, batch_case = phase_batch(dev)
         _, k3_launches, pm_mesh = phase_mesh_plan(dev, obj_path)
         phase_mesh_batch(dev, pm_mesh.shape)
+        k1_recs, slice_case = phase_kernels(dev)
+        k2_recs = phase_k2(dev)
+        k4_recs = phase_k4(dev, slice_case)
+        k3_recs = phase_k3(dev, obj_path)
+        check(not KERNEL_FAILURES, "; ".join(KERNEL_FAILURES))
         if "--profile" in sys.argv[1:]:
             phase_profile(pm, batch_case, pm_mesh)
     except SmokeFailure as e:

@@ -3,8 +3,7 @@
 //
 // Replaces the TPU kernel isdf_tpu/sweep/pallas_grid_zoom.py:
 // _grid_sweep_callable.call (body _make_grid_sweep_kernel), entered through
-// grid_sweep_warm_fused.  One thread per query point p; per point, in one
-// launch:
+// grid_sweep_warm_fused.  Per query point p, in one launch:
 //   1. a coarse scan at coarse_n times clip(j * step, 0, total),
 //      step = total / (coarse_n - 1), on the 2x-min-pooled twin of the field
 //      (pooled origin, 1/res and res, also in the outside term), keeping the
@@ -21,12 +20,10 @@
 //   6. the trilinear value at t* and its gradient dSDF/dp_rel in closed form
 //      (the lerps of the corner differences, zero where the clamp holds a
 //      coordinate, plus the outside-box distance's slope).
-// The trajectory pose comes from the piece coefficients for every candidate,
-// the coarse scan included (pose_chain.cuh, the code K1, K2 and K4 run), not
-// from a pose table.  The block index is
-// one-dimensional and scenario-major: a block covers BLOCK points of one
-// scenario and stages that scenario's piece tables in shared memory; every
-// scenario reads the one field, and the single sweep is the B = 1 launch.
+// The block index is one-dimensional and scenario-major: a block covers
+// BLOCK / LANES points of one scenario and stages that scenario's piece
+// tables in shared memory; every scenario reads the one field, and the
+// single sweep is the B = 1 launch.
 //
 // On the TPU the trilinear lookup is a two-hot bf16 MXU product over the
 // whole field held in VMEM, because the TPU has no vector gather.  Here it
@@ -35,12 +32,30 @@
 // a few hundred KB, the L2 50 MB), and no field size limit applies, so the
 // TPU's pooled search of fields beyond its VMEM budget has no counterpart.
 //
-// What bounds it on this card: FP32 arithmetic (about coarse_n + 4 *
-// (rounds + 2) + 2 pose-chain and trilinear evaluations per point, each
-// ~210 operations) and the latency of the dependent gathers; the bytes that
-// must move are the field, its twin and 36 B per point.  Gathers served
-// from L2 are not DRAM bytes.  At P = 4096 the 32 blocks fill a quarter of
-// the 132 SMs, so the kernel is latency-bound there.
+// What bounds it on this card.  The bytes that must move are the field, its
+// twin and 36 B a point (gathers served from L2 are not DRAM bytes).  The
+// work is coarse_n pooled trilinear evaluations and 4 * (rounds + 2) + 2
+// pose-chain and trilinear evaluations a point, plus coarse_n pose chains a
+// scenario.  With one thread a point the mesh plan's sweep (P = 4096: 32
+// blocks on 132 SMs) was latency-bound: a quarter of the SMs ran one warp per
+// scheduler down a chain of ~234 dependent evaluations with 8 gathers each,
+// and every thread evaluated the coarse poses anew although they depend on
+// the time alone.
+//
+// What the design does about it:
+//   * The coarse poses are computed once per block, pose_at at
+//     clip(j * step, 0, total) - the same device function at the same time,
+//     so bitwise the value each thread computed - into a pose table in
+//     shared memory; the scan then costs p_rel, grid coordinates and the
+//     pooled trilinear lookup per row.  Past 48 KB (coarse_n = 2048 is
+//     96 KB) the launch grants the dynamic shared memory once.
+//   * LANES = 4 threads a point, one per zoom candidate: lane l scans the
+//     coarse rows r = l and l + 4 (in that order), the lanes' first minima
+//     combine to the least d, on a tie the smaller row (pose_chain.cuh:
+//     lanes_first_min); each zoom round lane l evaluates candidate l and the
+//     values are exchanged with shuffles (lane_zoom).  A point's chain is
+//     2 * coarse_n / 8 pooled lookups and 27 evaluations, and P = 4096 is
+//     128 blocks.  The epilogue runs on lane 0.
 //
 // Built with -fmad=false and written in the order of its plain PyTorch
 // version (sweep/grid_zoom.grid_sweep_warm_fused_ref), so the two round
@@ -54,7 +69,9 @@
 #define GK 4            // zoom candidates per round
 #define KC 8            // coarse-scan group
 #define PRE 2           // warm pre-zoom rounds
-#define BLOCK 128
+#define BLOCK 128       // threads per block
+#define LANES_K3 GK     // threads per point: one per zoom candidate
+#define SMEM_MAX 232448 // shared memory a block can have (227 KB)
 
 struct GridField {
     const float* f;      // (nx, ny, nz), flat index (ix * ny + iy) * nz + iz
@@ -131,30 +148,21 @@ __device__ __forceinline__ float sdf_at(const Tables& tb, const FlatArgs& fp,
     return field_at<false>(G, r, nullptr);
 }
 
-// fixed-round k = 4 plateau zoom from (t, w) on the field G; returns the
-// last round's minimum
+// fixed-round k = 4 plateau zoom from (t, w) on the field G (lane_zoom);
+// returns the last round's minimum
+template <int LANES>
 __device__ __forceinline__ float zoom(const Tables& tb, const FlatArgs& fp,
                                       const GridField& G, const float p[3],
                                       float total, int rounds, float& t,
-                                      float w) {
-    const float shrink = (float)(2.0 / (GK - 1));
-    float dmin = 0.f;
-    for (int rd = 0; rd < rounds; ++rd) {
-        float cand[GK], d[GK];
-#pragma unroll
-        for (int i = 0; i < GK; ++i) {
-            const float off = (float)i * shrink - 1.f;
-            cand[i] = fminf(fmaxf(t + w * off, 0.f), total);
-            d[i] = sdf_at(tb, fp, G, p, cand[i]);
-        }
-        dmin = plateau_pick<GK>(cand, d, t);
-        w = w * shrink;
-    }
-    return dmin;
+                                      float w, int lane) {
+    return lane_zoom<GK, LANES>(
+        [&](float tc) { return sdf_at(tb, fp, G, p, tc); }, total, rounds, t,
+        w, lane);
 }
 
-// block `blockIdx.x` covers points [blk * BLOCK, blk * BLOCK + BLOCK) of
-// scenario b = blockIdx.x / bps
+// block `blockIdx.x` covers points [blk * PPB, blk * PPB + PPB) of scenario
+// b = blockIdx.x / bps, LANES consecutive threads per point
+template <int LANES>
 __global__ void __launch_bounds__(BLOCK)
 grid_sweep_kernel(const float* __restrict__ pts, const float* __restrict__ t_warm,
                   const float* __restrict__ starts, const float* __restrict__ durs,
@@ -163,42 +171,47 @@ grid_sweep_kernel(const float* __restrict__ pts, const float* __restrict__ t_war
                   int N, int coarse_n, int rounds, float warm_window,
                   float w_seed_a, GridField fine, GridField pooled, FlatArgs fp,
                   int bps) {
-    extern __shared__ float smem[];
+    constexpr int PPB = BLOCK / LANES;
+    extern __shared__ float4 smem4[];
     const size_t b = blockIdx.x / bps;
     const int blk = blockIdx.x % bps;
-    const Tables tb = load_tables(smem, starts + b * N, durs + b * N,
-                                  coeffs + b * N * NCOEF * 3, N);
-
-    const int i = blk * BLOCK + threadIdx.x;
-    if (i >= P) return;
-    const size_t gi = b * P + i;          // this point, over all scenarios
+    float* s_pose = reinterpret_cast<float*>(smem4);
+    const Tables tb = load_tables(s_pose + coarse_n * 12, starts + b * N,
+                                  durs + b * N, coeffs + b * N * NCOEF * 3, N);
     const float total = tb.cum[N - 1];
+    const float step = total / (float)(coarse_n - 1);
+
+    // the coarse poses, once per block: row j at clip(j * step, 0, total)
+    for (int j = threadIdx.x; j < coarse_n; j += BLOCK) {
+        float x[3], R[9];
+        pose_at(tb, fp, fminf(fmaxf((float)j * step, 0.f), total), x, R);
+        store_pose_row(s_pose + 12 * j, x, R);
+    }
+    __syncthreads();
+
+    const int lane = threadIdx.x % LANES;
+    const int i = blk * PPB + threadIdx.x / LANES;
+    const bool live = i < P;              // past P: compute, store nothing
+    const size_t gi = b * P + (live ? i : P - 1);
     const float p[3] = {pts[3 * gi], pts[3 * gi + 1], pts[3 * gi + 2]};
 
-    // 1. coarse scan on the pooled twin
-    const float step = total / (float)(coarse_n - 1);
-    const int groups = coarse_n / KC;
-    float dbest = 0.f, t0 = 0.f;
-    bool have = false;
-    for (int r = 0; r < KC; ++r) {
-        for (int g = 0; g < groups; ++g) {
-            const float t = fminf(fmaxf((float)(g * KC + r) * step, 0.f), total);
-            const float d = sdf_at(tb, fp, pooled, p, t);
-            if (!have || d < dbest) {
-                dbest = d;
-                t0 = t;
-                have = true;
-            }
-        }
-    }
+    // 1. coarse scan on the pooled twin (pose_chain.cuh: coarse_scan; lane
+    // l scans the rows r = l and l + 4)
+    const int jbest = coarse_scan<LANES>(
+        [&](const float q[3]) { return field_at<false>(pooled, q, nullptr); },
+        s_pose, p, coarse_n, lane);
+    const float t0 = fminf(fmaxf((float)jbest * step, 0.f), total);
 
     // 2.-5. warm pre-zoom, the coarse seed's true value, the pick, deep zoom
     float tA = fminf(fmaxf(t_warm[gi], 0.f), total);
-    const float dA = zoom(tb, fp, fine, p, total, PRE, tA, warm_window);
+    const float dA = zoom<LANES>(tb, fp, fine, p, total, PRE, tA, warm_window,
+                                 lane);
     const float dB0 = sdf_at(tb, fp, fine, p, t0);
     const bool use_a = dA <= dB0;
     float ts = use_a ? tA : t0;
-    zoom(tb, fp, fine, p, total, rounds, ts, use_a ? w_seed_a : step);
+    zoom<LANES>(tb, fp, fine, p, total, rounds, ts, use_a ? w_seed_a : step,
+                lane);
+    if (lane != 0 || !live) return;
 
     // 6. value and gradient at t*
     float x[3], R[9], r[3], dg[3];
@@ -214,24 +227,31 @@ grid_sweep_kernel(const float* __restrict__ pts, const float* __restrict__ t_war
 
 // Plain C entry point (loaded with ctypes).  Launches on `stream` without
 // synchronising and returns cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take.  Arrays carry
-// a leading B: pts (B, P, 3), t_warm (B, P), starts/durs (B, N), coeffs
-// (B, N, 6, 3) -> t_star, d_star (B, P), grad (B, P, 3); the single sweep is
-// B = 1.  w_seed_a = warm_window * (2/3)^2, computed by the caller in double.
+// cudaErrorInvalidValue for arguments the kernel does not take, or the error
+// of granting the shared memory.  Arrays carry a leading B: pts (B, P, 3),
+// t_warm (B, P), starts/durs (B, N), coeffs (B, N, 6, 3) -> t_star, d_star
+// (B, P), grad (B, P, 3); the single sweep is B = 1.
+// w_seed_a = warm_window * (2/3)^2, computed by the caller in double.
 extern "C" int isdf_grid_sweep_warm_fused(
     const float* pts, const float* t_warm, const float* starts,
     const float* durs, const float* coeffs, float* t_star, float* d_star,
     float* grad, int B, int P, int N, int coarse_n, int rounds,
     float warm_window, float w_seed_a, GridField fine, GridField pooled,
     FlatArgs fp, void* stream) {
-    const int bps = (P + BLOCK - 1) / BLOCK;
+    static size_t granted = 0;
+    const int bps = (P + BLOCK / LANES_K3 - 1) / (BLOCK / LANES_K3);
     const long long blocks = (long long)bps * B;
+    const size_t smem = ((size_t)coarse_n * 12 + table_floats(N)) * sizeof(float);
     if (blocks < 1 || blocks > INT_MAX || N < 1 || coarse_n < KC
-        || coarse_n % KC != 0 || fine.nx < 3 || fine.ny < 3 || fine.nz < 3
-        || pooled.nx < 2 || pooled.ny < 2 || pooled.nz < 2)
+        || coarse_n % KC != 0 || smem > SMEM_MAX || fine.nx < 3
+        || fine.ny < 3 || fine.nz < 3 || pooled.nx < 2 || pooled.ny < 2
+        || pooled.nz < 2)
         return (int)cudaErrorInvalidValue;
-    grid_sweep_kernel<<<(unsigned)blocks, BLOCK, table_bytes(N),
-                        (cudaStream_t)stream>>>(
+    const cudaError_t e = allow_smem(grid_sweep_kernel<LANES_K3>, smem,
+                                     granted);
+    if (e != cudaSuccess) return (int)e;
+    grid_sweep_kernel<LANES_K3><<<(unsigned)blocks, BLOCK, smem,
+                                  (cudaStream_t)stream>>>(
         pts, t_warm, starts, durs, coeffs, t_star, d_star, grad, P, N,
         coarse_n, rounds, warm_window, w_seed_a, fine, pooled, fp, bps);
     return (int)cudaGetLastError();

@@ -1,25 +1,56 @@
-// The trajectory pose chain and the plateau pick shared by the swept-SDF
-// kernels (sweep_warm.cu: K1, K2, K4; grid_sweep.cu: K3).
+// The trajectory pose chain, the plateau pick and the lane-parallel zoom
+// shared by the swept-SDF kernels (sweep_warm.cu: K1, K2, K4; grid_sweep.cu:
+// K3).
 //
-//   load_tables  stages one scenario's piece tables in shared memory
-//                (pallas_zoom._load_coeff_tables);
-//   pose_at      position and quadrotor-tilt rotation at a time t, from the
-//                located piece only (pallas_zoom._pvaj_rows +
-//                fast_eval.pose_components);
-//   rel          p_rel = R^T (p - x) (fast_eval.rel_components);
-//   plateau_pick the plateau-centred argmin of K candidates
-//                (pallas_zoom._plateau_rows): K1/K4 zoom with K = 8, K3
-//                with K = 4.
+//   load_tables     stages one scenario's piece tables in shared memory
+//                   (pallas_zoom._load_coeff_tables);
+//   pose_at         position and quadrotor-tilt rotation at a time t, from
+//                   the located piece only (pallas_zoom._pvaj_rows +
+//                   fast_eval.pose_components);
+//   rel             p_rel = R^T (p - x) (fast_eval.rel_components);
+//   plateau_pick    the plateau-centred argmin of K candidates
+//                   (pallas_zoom._plateau_rows): K1/K4 zoom with K = 8, K3
+//                   with K = 4;
+//   coarse_scan     a lane's share of the coarse scan over the pose rows,
+//                   and lanes_first_min, the combine of the lanes' minima;
+//   lane_zoom       the fixed-round plateau zoom, one candidate per lane.
+//
+// The piece tables.  Before, a piece stored its derivative-folded Horner
+// coefficients (pos 6, vel 5, acc 4 per axis) and a candidate's pose read
+// 48 of its ~620 issued instructions from shared memory (SASS of K2's zoom,
+// CappedCone; PERF.md §6).  Now a piece stores only its 18 position
+// coefficients, 8 floats per axis (6 and 2 of padding), read as one 16-byte
+// and one 8-byte vector, and {start, duration} as one 8-byte pair: 7 loads
+// plus the piece search, 8 in the SASS.  The velocity and acceleration
+// coefficients c[k]·k and c[k]·k·(k−1) are formed in registers by the float
+// products the folded tables held, so every value is bitwise what it was.
+//
+// Lanes.  A kernel may give each query point LANES consecutive threads of a
+// warp (a compile-time parameter dividing 32).  Every lane of a point keeps
+// the point's uniform state (t, w, the branch).  In a zoom round lane l
+// evaluates candidate l, the K values are exchanged with __shfl_sync (width
+// K), every lane recomputes the K candidate times from the uniform (t, w)
+// and runs the unchanged plateau_pick, so the sum of the plateau stays in
+// index order and t is bitwise the one-lane value (lane_zoom).  The coarse
+// scan splits the rows of the TPU kernel's order (row r = j mod 8 outer,
+// group j / 8 inner, strict <) over the lanes, and the lanes' first minima
+// combine to the least d, on an exact tie the earlier place in that order:
+// the first minimum, as with one lane (coarse_scan, lanes_first_min).
+// Lanes of a point past P still take part in every shuffle (the caller
+// clamps the index and skips the store).
 //
 // Every expression is written in the order of its plain PyTorch version
 // (sweep/fast_eval.py, fused_zoom._plateau_rows); the sources are built with
 // -fmad=false, so the two round alike op by op.
 #pragma once
 
+#include <climits>
+#include <cmath>
 #include <cuda_runtime.h>
 
 #define NCOEF 6                  // MINCO s = 3: quintic pieces
-#define NFOLD (3 * NCOEF - 3)    // pos (6) + vel (5) + acc (4) coefficients
+#define CSTRIDE 8                // floats per axis of a piece's coefficients
+#define FULL_MASK 0xffffffffu
 
 struct FlatArgs {
     float grav;
@@ -30,10 +61,9 @@ struct FlatArgs {
 
 // trajectory tables of one scenario, in shared memory
 struct Tables {
-    const float* start;
-    const float* dur;
-    const float* cum;
-    const float* coef;   // [N][3][NFOLD]
+    const float* coef;   // [N][3][CSTRIDE]: c0..c5 of each axis, 2 pad
+    const float2* sd;    // [N] {start, duration}
+    const float* cum;    // [N] cumulative ends
     int N;
 };
 
@@ -46,26 +76,21 @@ __device__ __forceinline__ void pose_at(const Tables& tb, const FlatArgs& fp,
         int mid = (lo + hi) >> 1;
         if (t > tb.cum[mid]) lo = mid + 1; else hi = mid;
     }
-    const float s = fminf(fmaxf(t - tb.start[lo], 0.f), tb.dur[lo]);
-    const float* c = tb.coef + lo * 3 * NFOLD;
+    const float2 sd = tb.sd[lo];
+    const float s = fminf(fmaxf(t - sd.x, 0.f), sd.y);
+    const float* c = tb.coef + lo * 3 * CSTRIDE;
     float vel[3], acc[3];
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
-        const float* ca = c + ax * NFOLD;
-        float h = ca[NCOEF - 1];
-#pragma unroll
-        for (int k = NCOEF - 2; k >= 0; --k) h = h * s + ca[k];
-        x[ax] = h;
-        const float* cv = ca + NCOEF;
-        h = cv[NCOEF - 2];
-#pragma unroll
-        for (int k = NCOEF - 3; k >= 0; --k) h = h * s + cv[k];
-        vel[ax] = h;
-        const float* cc = cv + NCOEF - 1;
-        h = cc[NCOEF - 3];
-#pragma unroll
-        for (int k = NCOEF - 4; k >= 0; --k) h = h * s + cc[k];
-        acc[ax] = h;
+        const float4 a = *reinterpret_cast<const float4*>(c + ax * CSTRIDE);
+        const float2 e = *reinterpret_cast<const float2*>(c + ax * CSTRIDE + 4);
+        // Horner on pos (c0..c5), vel (c[k]·k) and acc (c[k]·k·(k−1)), as
+        // pallas_zoom._load_coeff_tables folds them (c·1 is c)
+        x[ax] = ((((e.y * s + e.x) * s + a.w) * s + a.z) * s + a.y) * s + a.x;
+        vel[ax] = ((((e.y * 5.f) * s + e.x * 4.f) * s + a.w * 3.f) * s
+                   + a.z * 2.f) * s + a.y;
+        acc[ax] = (((e.y * 20.f) * s + e.x * 12.f) * s + a.w * 6.f) * s
+                  + a.z * 2.f;
     }
     // quadrotor tilt (fast_eval.pose_components)
     const float cp_term = sqrtf(vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2] + fp.veps);
@@ -93,6 +118,25 @@ __device__ __forceinline__ void rel(const float p[3], const float x[3],
     r[0] = R[0] * dx + R[3] * dy + R[6] * dz;
     r[1] = R[1] * dx + R[4] * dy + R[7] * dz;
     r[2] = R[2] * dx + R[5] * dy + R[8] * dz;
+}
+
+// a [x | R] pose row of 12 floats in shared memory (16-byte aligned), read
+// as three 16-byte vectors
+__device__ __forceinline__ void pose_row(const float* row, float x[3],
+                                         float R[9]) {
+    const float4* v = reinterpret_cast<const float4*>(row);
+    const float4 a = v[0], b = v[1], c = v[2];
+    x[0] = a.x; x[1] = a.y; x[2] = a.z;
+    R[0] = a.w; R[1] = b.x; R[2] = b.y; R[3] = b.z; R[4] = b.w;
+    R[5] = c.x; R[6] = c.y; R[7] = c.z; R[8] = c.w;
+}
+
+__device__ __forceinline__ void store_pose_row(float* row, const float x[3],
+                                               const float R[9]) {
+    float4* v = reinterpret_cast<float4*>(row);
+    v[0] = make_float4(x[0], x[1], x[2], R[0]);
+    v[1] = make_float4(R[1], R[2], R[3], R[4]);
+    v[2] = make_float4(R[5], R[6], R[7], R[8]);
 }
 
 // plateau-centred argmin of K candidates (pallas_zoom._plateau_rows): t
@@ -143,31 +187,140 @@ __device__ __forceinline__ float plateau_pick(const float (&cand)[K],
     return dmin;
 }
 
-// stage one scenario's piece tables in shared memory → its total duration.
-// Derivative-folded Horner tables as pallas_zoom._load_coeff_tables builds.
+// The coarse scan's combine over the LANES lanes of a point: each lane
+// brings its first minimum d at pose row j, whose place in the scan order
+// (row r = j mod 8 outer, group j / 8 inner) is key = r * groups + j / 8.
+// The result is the least d, on an exact tie the smaller key: the first
+// minimum in (row, group) order over all rows.  A lane that scanned no row
+// brings d = +inf at key INT_MAX and so never wins.  Every lane returns lane
+// 0's j, so the lanes stay uniform whatever the values.
+template <int LANES>
+__device__ __forceinline__ int lanes_first_min(float d, int key, int j) {
+    if constexpr (LANES > 1) {
+#pragma unroll
+        for (int m = 1; m < LANES; m <<= 1) {
+            const float d2 = __shfl_xor_sync(FULL_MASK, d, m, LANES);
+            const int k2 = __shfl_xor_sync(FULL_MASK, key, m, LANES);
+            const int j2 = __shfl_xor_sync(FULL_MASK, j, m, LANES);
+            if (d2 < d || (d2 == d && k2 < key)) {
+                d = d2;
+                key = k2;
+                j = j2;
+            }
+        }
+        j = __shfl_sync(FULL_MASK, j, 0, LANES);
+    }
+    return j;
+}
+
+// The coarse scan of one lane over the pose rows in shared memory, in the
+// TPU kernel's order (row r = j mod 8 outer, group g = j / 8 inner; strict
+// < keeps the first of equal minima): lane l of LANES scans the rows
+// r = l mod 8, l mod 8 + LANES, ... (LANES <= 8) or, with more lanes than
+// rows, every (LANES / 8)-th group of row l mod 8 from group l / 8; with
+// fewer groups than LANES / 8 (coarse_n = 8 and 16 lanes) the last lanes
+// scan nothing.  sdf(q) is the body SDF at p_rel q.  → the point's first
+// minimum's row j, the same in every lane.
+template <int LANES, class Sdf>
+__device__ __forceinline__ int coarse_scan(const Sdf& sdf, const float* s_pose,
+                                           const float p[3], int coarse_n,
+                                           int lane) {
+    constexpr int ROWS = 8;
+    constexpr int RSTEP = LANES < ROWS ? LANES : ROWS;
+    constexpr int GSTEP = LANES > ROWS ? LANES / ROWS : 1;
+    const int groups = coarse_n / ROWS;
+    float dbest = INFINITY;
+    int jbest = 0, kbest = INT_MAX;
+    bool have = false;
+    auto visit = [&](int r, int g) {
+        const int j = g * ROWS + r;
+        float x[3], R[9], q[3];
+        pose_row(s_pose + 12 * j, x, R);
+        rel(p, x, R, q);
+        const float d = sdf(q);
+        if (!have || d < dbest) {
+            dbest = d;
+            jbest = j;
+            kbest = r * groups + g;
+            have = true;
+        }
+    };
+    for (int r = lane % ROWS; r < ROWS; r += RSTEP) {
+        // several lanes a point are latency-bound: unrolled rows overlap;
+        // one lane a point fills the card and is not helped by it
+        if constexpr (LANES > 1) {
+#pragma unroll 4
+            for (int g = lane / ROWS; g < groups; g += GSTEP) visit(r, g);
+        } else {
+            for (int g = 0; g < groups; ++g) visit(r, g);
+        }
+    }
+    return lanes_first_min<LANES>(dbest, kbest, jbest);
+}
+
+// `rounds` rounds of the K-candidate plateau zoom from (t, w): candidate i
+// at clip(t + w·(2i/(K−1) − 1), 0, total), t re-centred on the
+// plateau-centred argmin, w shrunk by 2/(K−1).  eval(t) is the SDF at time
+// t.  With LANES = K lane l evaluates candidate l and the values are
+// exchanged; with LANES = 1 one thread evaluates all K.  Returns the last
+// round's minimum; t, the result and the control flow are uniform over a
+// point's lanes.
+template <int K, int LANES, class Eval>
+__device__ __forceinline__ float lane_zoom(const Eval& eval, float total,
+                                           int rounds, float& t, float w,
+                                           int lane) {
+    static_assert(LANES == 1 || LANES == K, "a zoom lane per candidate");
+    const float shrink = (float)(2.0 / (K - 1));
+    float dmin = 0.f;
+    for (int rd = 0; rd < rounds; ++rd) {
+        float cand[K], d[K];
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+            const float off = (float)i * shrink - 1.f;
+            cand[i] = fminf(fmaxf(t + w * off, 0.f), total);
+        }
+        if constexpr (LANES == 1) {
+#pragma unroll
+            for (int i = 0; i < K; ++i) d[i] = eval(cand[i]);
+        } else {
+            // the same expression as cand[lane], bitwise
+            const float off = (float)lane * shrink - 1.f;
+            const float mine = eval(fminf(fmaxf(t + w * off, 0.f), total));
+#pragma unroll
+            for (int i = 0; i < K; ++i)
+                d[i] = __shfl_sync(FULL_MASK, mine, i, LANES);
+        }
+        dmin = plateau_pick<K>(cand, d, t);
+        w = w * shrink;
+    }
+    return dmin;
+}
+
+// floats of one scenario's piece tables in shared memory
+static inline size_t table_floats(int N) {
+    return (size_t)N * (3 * CSTRIDE + 2 + 1);
+}
+
+// stage one scenario's piece tables in shared memory at `smem` (16-byte
+// aligned) and wait for the block.  The coefficients of piece n, axis ax,
+// power k sit at coeffs[(n * NCOEF + k) * 3 + ax].
 __device__ __forceinline__ Tables load_tables(float* smem, const float* starts,
                                               const float* durs,
                                               const float* coeffs, int N) {
-    float* s_start = smem;
-    float* s_dur = smem + N;
-    float* s_cum = smem + 2 * N;
-    float* s_coef = smem + 3 * N;
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
-        s_start[n] = starts[n];
-        s_dur[n] = durs[n];
-    }
+    float* s_coef = smem;
+    float2* s_sd = reinterpret_cast<float2*>(smem + N * 3 * CSTRIDE);
+    float* s_cum = smem + N * (3 * CSTRIDE + 2);
     for (int e = threadIdx.x; e < 3 * N; e += blockDim.x) {
         const int n = e / 3, ax = e % 3;
         const float* c = coeffs + n * NCOEF * 3 + ax;
-        float* o = s_coef + e * NFOLD;
+        float* o = s_coef + e * CSTRIDE;
 #pragma unroll
         for (int k = 0; k < NCOEF; ++k) o[k] = c[k * 3];
-#pragma unroll
-        for (int k = 1; k < NCOEF; ++k) o[NCOEF + k - 1] = c[k * 3] * (float)k;
-#pragma unroll
-        for (int k = 2; k < NCOEF; ++k)
-            o[2 * NCOEF - 1 + k - 2] = c[k * 3] * (float)(k * (k - 1));
+        o[NCOEF] = 0.f;
+        o[NCOEF + 1] = 0.f;
     }
+    for (int n = threadIdx.x; n < N; n += blockDim.x)
+        s_sd[n] = make_float2(starts[n], durs[n]);
     if (threadIdx.x == 0) {
         float acc = durs[0];
         s_cum[0] = acc;
@@ -177,10 +330,18 @@ __device__ __forceinline__ Tables load_tables(float* smem, const float* starts,
         }
     }
     __syncthreads();
-    return Tables{s_start, s_dur, s_cum, s_coef, N};
+    return Tables{s_coef, s_sd, s_cum, N};
 }
 
-// shared memory of one scenario's tables
-static inline size_t table_bytes(int N) {
-    return (size_t)N * (3 + 3 * NFOLD) * sizeof(float);
+// Dynamic shared memory above the default 48 KB must be granted to each
+// kernel instantiation; `granted` (one per instantiation) remembers the
+// largest grant.  → cudaSuccess or the attribute call's error.
+template <class Kernel>
+static inline cudaError_t allow_smem(Kernel kernel, size_t bytes,
+                                     size_t& granted) {
+    if (bytes <= 48 * 1024 || bytes <= granted) return cudaSuccess;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e == cudaSuccess) granted = bytes;
+    return e;
 }

@@ -3,12 +3,12 @@
 // K1/K2: fused warm swept SDF.  Replaces the TPU kernels
 // isdf_tpu/sweep/pallas_zoom.py:_fused_callable._single (K1) and ._batched
 // with its custom_vmap rule (K2), body _make_sweep_kernel, entered through
-// sweep_warm_fused.  Both are one __global__, sweep_warm_kernel: K2 launches
-// it over B scenarios (one block covers BLOCK points of ONE scenario and
-// stages that scenario's starts/durations/coefficients in shared memory; its
-// pose table, total and step are the scenario's own), K1 is the B = 1 launch.
-// The block index is one-dimensional, scenario-major, so B is not bound by
-// the 65 535 limit of gridDim.y.  For every query point p, in one launch:
+// sweep_warm_fused.  Both are one __global__, sweep_warm_kernel<KIND, LANES>:
+// K2 launches it over B scenarios (a block covers points of ONE scenario and
+// stages that scenario's pose table and piece tables in shared memory; its
+// total and step are the scenario's own), K1 is the B = 1 launch.  The
+// block index is one-dimensional, scenario-major, so B is not bound by the
+// 65 535 limit of gridDim.y.  For every query point p, in one launch:
 //   1. a coarse scan over the (coarse_n, 12) [x | R] pose table at the uniform
 //      times j * step, step = total / (coarse_n - 1);
 //   2. two zooms of `rounds` rounds, k = 8 candidates each, re-centred on the
@@ -20,31 +20,50 @@
 //      forward-mode dual number with three partials (what jax.grad gives at
 //      pallas_zoom.py:390-392, not a finite difference).
 //
-// What bounds it on this card: FP32 arithmetic on the CUDA cores plus one
-// sqrt/rsqrt chain per candidate (about (coarse_n + 2*rounds*k) body SDF
-// evaluations per point); the bytes are tiny (16 B in, 20 B out per point, a
-// pose table and a few hundred coefficients shared by all points).  So it is
-// compute-bound.  The design keeps everything a point touches on chip: one
-// thread per point, its k candidates and their SDF values in registers (all
-// candidate loops are unrolled over the compile-time k), the piecewise
-// trajectory tables (starts, durations, cumulative ends and the
-// derivative-folded Horner coefficients of pos/vel/acc) staged once per block
-// in shared memory, and the pose table read through the read-only cache (every
-// thread of a warp reads the same row, a broadcast; at the audit's
-// coarse_n = 2048 the table is 96 KB, past the 48 KB static shared limit).
-// Only the located piece is evaluated (binary search over the cumulative ends),
-// not all N pieces under masks as on the TPU.  At the batched solve's size
-// (4096 scenarios x 512 points) K2 is 16 384 blocks, which fills the card's
-// 132 SMs; K1 at P = 4096 is 32 blocks and is latency-bound.
+// What bounds it on this card.  The bytes are tiny (16 B in and 20 B out a
+// point, a pose table and a few hundred coefficients a scenario); the work
+// is ~(coarse_n + 2 * rounds * 8) body-SDF evaluations a point, each a pose
+// chain of ~200 FP32 operations.  With one thread a point, a single
+// trajectory's sweep (P = 4096: 32 blocks on 132 SMs) was latency-bound: a
+// quarter of the SMs ran one warp per scheduler down a 512-evaluation chain.
+// The batched solve's B = 4096 x 512 fills the card and is bound by the
+// instructions it issues, where the ~49 shared-memory loads per candidate
+// (against ~207 FP32 instructions; one shared-memory wavefront a clock per
+// SM against four FP32 warp instructions) were a co-limit (PERF.md §6 holds
+// the SASS count).
 //
-// K4: zoom_refine_kernel, the fixed-round k = 8 plateau zoom alone, from
-// per-point (t0, w0) to t*.  Replaces pallas_zoom.py:zoom_refine (kernel
-// _make_kernel).  It is K1's zoom device function behind its own __global__;
-// compute-bound like K1 (rounds * 8 body SDF evaluations per point, 20 B in and
-// 4 B out).
+// What the design does about it:
+//   * LANES threads a point, a template parameter: 16 or 1, chosen by the
+//     launch size B*P alone (fused_zoom._lanes_for; 16 up to 16 384 points,
+//     measured on an H100, PERF.md §6).  With 16, lanes 0..7 run zoom A and
+//     lanes 8..15 zoom B side by side, lane l evaluating candidate l mod 8
+//     each round; the 8 values of a zoom are exchanged with shuffles and
+//     each lane runs the same plateau pick (pose_chain.cuh: lane_zoom); the
+//     coarse scan gives lane l row l mod 8 and every other group from
+//     l / 8, and the lanes' first minima combine by the tie rule
+//     (coarse_scan, lanes_first_min).  A point's chain is 8 + 24
+//     evaluations, not 128 + 384 (slice size), and P = 4096 is 512 blocks.
+//     Where one lane a point already fills the card (the batched solve's
+//     B = 4096 x 512), more lanes only add shuffles and a pick repeated on
+//     every lane.  Both instantiations give bitwise the same results.
+//   * The scenario's pose table is staged in shared memory (three 16-byte
+//     loads a row; the lanes of a point read rows g*8 + r, r = 0..7, whose
+//     banks 12r mod 32 are all distinct); above the default 48 KB (the
+//     audit's coarse_n = 2048 is 96 KB) the launch grants each
+//     instantiation the dynamic shared memory once.
+//   * The piece tables hold only the position coefficients, read as
+//     vectors: 7 shared-memory loads a candidate plus the piece search
+//     (pose_chain.cuh).
+//   * Only the located piece is evaluated (binary search over the cumulative
+//     ends), not all N pieces under masks as on the TPU; every candidate's k
+//     values and the SDF stay in registers.
 //
-// The piece tables, the pose chain and the plateau pick live in
-// pose_chain.cuh, which K3 (grid_sweep.cu) shares.
+// K4: zoom_refine_kernel<KIND, LANES>, the fixed-round k = 8 plateau zoom
+// alone, from per-point (t0, w0) to t*.  Replaces pallas_zoom.py:zoom_refine
+// (kernel _make_kernel).  It is K1's zoom device function (lane_zoom) behind
+// its own __global__, with 8 lanes a point (one zoom) where K1's rule gives
+// lanes, else 1; like K1, rounds * 8 body SDF evaluations per point, 20 B in
+// and 4 B out.
 //
 // The body SDF is chosen at compile time: the file is compiled once per kind
 // with -DSDF_KIND=<id> (shapes/spec.py holds the ids), each into a library of
@@ -87,7 +106,8 @@
 #error "compile with -DSDF_KIND=<kind id of shapes/spec.py>"
 #endif
 #define ZK 8                     // zoom candidates per round
-#define BLOCK 128
+#define BLOCK 128                // threads per block
+#define SMEM_MAX 232448          // shared memory a block can have (227 KB)
 
 struct ShapeSpec {
     int kind;
@@ -413,31 +433,22 @@ __device__ __forceinline__ float sdf_at(const Tables& tb, const FlatArgs& fp,
     return sdf_shape<KIND>(sp, r[0], r[1], r[2]);
 }
 
-// fixed-round k = 8 plateau zoom from (t, w); returns the last round's min
-template <int KIND>
+// fixed-round k = 8 plateau zoom from (t, w) (lane_zoom); returns the last
+// round's min
+template <int KIND, int LANES>
 __device__ __forceinline__ float zoom(const Tables& tb, const FlatArgs& fp,
                                       const ShapeSpec& sp, const float p[3],
                                       float total, int rounds, float& t,
-                                      float w) {
-    const float shrink = (float)(2.0 / (ZK - 1));
-    float dmin = 0.f;
-    for (int rd = 0; rd < rounds; ++rd) {
-        float cand[ZK], d[ZK];
-#pragma unroll
-        for (int i = 0; i < ZK; ++i) {
-            const float off = (float)i * shrink - 1.f;
-            cand[i] = fminf(fmaxf(t + w * off, 0.f), total);
-            d[i] = sdf_at<KIND>(tb, fp, sp, p, cand[i]);
-        }
-        dmin = plateau_pick<ZK>(cand, d, t);
-        w = w * shrink;
-    }
-    return dmin;
+                                      float w, int lane) {
+    return lane_zoom<ZK, LANES>(
+        [&](float tc) { return sdf_at<KIND>(tb, fp, sp, p, tc); }, total,
+        rounds, t, w, lane);
 }
 
 // K1 (B = 1) and K2: block `blockIdx.x` covers points
-// [blk * BLOCK, blk * BLOCK + BLOCK) of scenario b, b = blockIdx.x / bps.
-template <int KIND>
+// [blk * PPB, blk * PPB + PPB) of scenario b, b = blockIdx.x / bps, LANES
+// consecutive threads per point: 1, or 2 * ZK (both zooms side by side).
+template <int KIND, int LANES>
 __global__ void __launch_bounds__(BLOCK)
 sweep_warm_kernel(const float* __restrict__ pts, const float* __restrict__ t_warm,
                   const float* __restrict__ pose, const float* __restrict__ starts,
@@ -446,48 +457,52 @@ sweep_warm_kernel(const float* __restrict__ pts, const float* __restrict__ t_war
                   float* __restrict__ grad, int P, int N, int coarse_n,
                   int rounds, float warm_window, int bps, ShapeSpec sp,
                   FlatArgs fp) {
-    extern __shared__ float smem[];
+    static_assert(LANES == 1 || LANES == 2 * ZK, "1 or 16 lanes a point");
+    constexpr int PPB = BLOCK / LANES;
+    extern __shared__ float4 smem4[];
     const size_t b = blockIdx.x / bps;
     const int blk = blockIdx.x % bps;
-    const Tables tb = load_tables(smem, starts + b * N, durs + b * N,
-                                  coeffs + b * N * NCOEF * 3, N);
+    // the scenario's pose table, then its piece tables
+    float* s_pose = reinterpret_cast<float*>(smem4);
+    const float4* g_pose = reinterpret_cast<const float4*>(pose + b * coarse_n * 12);
+    for (int e = threadIdx.x; e < coarse_n * 3; e += BLOCK)
+        smem4[e] = __ldg(g_pose + e);
+    const Tables tb = load_tables(s_pose + coarse_n * 12, starts + b * N,
+                                  durs + b * N, coeffs + b * N * NCOEF * 3, N);
 
-    const int i = blk * BLOCK + threadIdx.x;
-    if (i >= P) return;
-    const size_t gi = b * P + i;          // this point, over all scenarios
-    pose += b * coarse_n * 12;
+    const int lane = threadIdx.x % LANES;
+    const int i = blk * PPB + threadIdx.x / LANES;
+    const bool live = i < P;              // past P: compute, store nothing
+    const size_t gi = b * P + (live ? i : P - 1);
     const float total = tb.cum[N - 1];
     const float p[3] = {pts[3 * gi], pts[3 * gi + 1], pts[3 * gi + 2]};
 
-    // coarse scan, in the TPU kernel's order (row r = j mod k outer, group
-    // g = j / k inner; strict < keeps the first of equal minima in that order)
+    // coarse scan over the pose table (pose_chain.cuh: coarse_scan)
     const float step = total / (float)(coarse_n - 1);
-    const int groups = coarse_n / ZK;
-    float dbest = 0.f, tbest = 0.f;
-    bool have = false;
-    for (int r = 0; r < ZK; ++r) {
-        for (int g = 0; g < groups; ++g) {
-            const int j = g * ZK + r;
-            const float* row = pose + 12 * j;
-            float x[3], R[9], q[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) x[c] = __ldg(row + c);
-#pragma unroll
-            for (int c = 0; c < 9; ++c) R[c] = __ldg(row + 3 + c);
-            rel(p, x, R, q);
-            const float d = sdf_shape<KIND>(sp, q[0], q[1], q[2]);
-            if (!have || d < dbest) {
-                dbest = d;
-                tbest = (float)j * step;
-                have = true;
-            }
-        }
-    }
+    const int jbest = coarse_scan<LANES>(
+        [&](const float q[3]) { return sdf_shape<KIND>(sp, q[0], q[1], q[2]); },
+        s_pose, p, coarse_n, lane);
 
+    // zoom A from t_warm and zoom B from the scan's argmin: one after the
+    // other on one lane, or side by side on 2 * ZK lanes (lanes 0..7 zoom A,
+    // 8..15 zoom B, one candidate each) that then exchange their results
     float tA = fminf(fmaxf(t_warm[gi], 0.f), total);
-    const float dA = zoom<KIND>(tb, fp, sp, p, total, rounds, tA, warm_window);
-    float tB = tbest;
-    const float dB = zoom<KIND>(tb, fp, sp, p, total, rounds, tB, step);
+    float tB = (float)jbest * step;
+    float dA, dB;
+    if constexpr (LANES == 1) {
+        dA = zoom<KIND, 1>(tb, fp, sp, p, total, rounds, tA, warm_window, 0);
+        dB = zoom<KIND, 1>(tb, fp, sp, p, total, rounds, tB, step, 0);
+    } else {
+        const bool b_half = lane >= ZK;
+        float t = b_half ? tB : tA;
+        const float d = zoom<KIND, ZK>(tb, fp, sp, p, total, rounds, t,
+                                       b_half ? step : warm_window, lane % ZK);
+        tA = t;
+        dA = d;
+        tB = __shfl_xor_sync(FULL_MASK, t, ZK, LANES);
+        dB = __shfl_xor_sync(FULL_MASK, d, ZK, LANES);
+    }
+    if (lane != 0 || !live) return;
     const bool use_a = dA <= dB;
     const float ts = use_a ? tA : tB;
 
@@ -509,56 +524,112 @@ sweep_warm_kernel(const float* __restrict__ pts, const float* __restrict__ t_war
 
 // K4: the plateau zoom alone, from per-point (t0, w0); the candidates are
 // clipped to [0, total], t0 itself is not (pallas_zoom._make_kernel).
-template <int KIND>
+template <int KIND, int LANES>
 __global__ void __launch_bounds__(BLOCK)
 zoom_refine_kernel(const float* __restrict__ pts, const float* __restrict__ t0,
                    const float* __restrict__ w0, const float* __restrict__ starts,
                    const float* __restrict__ durs, const float* __restrict__ coeffs,
                    float* __restrict__ t_star, int P, int N, int rounds,
                    ShapeSpec sp, FlatArgs fp) {
-    extern __shared__ float smem[];
-    const Tables tb = load_tables(smem, starts, durs, coeffs, N);
-    const int i = blockIdx.x * BLOCK + threadIdx.x;
-    if (i >= P) return;
-    const float p[3] = {pts[3 * i], pts[3 * i + 1], pts[3 * i + 2]};
-    float t = t0[i];
-    zoom<KIND>(tb, fp, sp, p, tb.cum[N - 1], rounds, t, w0[i]);
-    t_star[i] = t;
+    extern __shared__ float4 smem4[];
+    const Tables tb = load_tables(reinterpret_cast<float*>(smem4), starts,
+                                  durs, coeffs, N);
+    const int lane = threadIdx.x % LANES;
+    const int i = blockIdx.x * (BLOCK / LANES) + threadIdx.x / LANES;
+    const bool live = i < P;
+    const int ic = live ? i : P - 1;
+    const float p[3] = {pts[3 * ic], pts[3 * ic + 1], pts[3 * ic + 2]};
+    float t = t0[ic];
+    zoom<KIND, LANES>(tb, fp, sp, p, tb.cum[N - 1], rounds, t, w0[ic], lane);
+    if (lane == 0 && live) t_star[ic] = t;
 }
 
 // Plain C entry points (loaded with ctypes).  Each launches on `stream`
 // without synchronising and returns cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue when `sp` is of another kind than this library's.
+// cudaErrorInvalidValue for arguments the kernels do not take (a spec of
+// another kind than this library's, a lane count the kernel has no
+// instantiation for, more shared memory than a block has), or the error of
+// granting the shared memory.
 extern "C" int isdf_sdf_kind(void) { return SDF_KIND; }
 
+// shared memory of one block: the pose table and the piece tables
+static inline size_t sweep_smem(int N, int coarse_n) {
+    return ((size_t)coarse_n * 12 + table_floats(N)) * sizeof(float);
+}
+
+template <int LANES>
+static int launch_sweep(const float* pts, const float* t_warm,
+                        const float* pose, const float* starts,
+                        const float* durs, const float* coeffs, float* t_star,
+                        float* d_star, float* grad, int B, int P, int N,
+                        int coarse_n, int rounds, float warm_window,
+                        ShapeSpec sp, FlatArgs fp, cudaStream_t stream) {
+    static size_t granted = 0;
+    const int bps = (P + BLOCK / LANES - 1) / (BLOCK / LANES);
+    const long long blocks = (long long)bps * B;
+    const size_t smem = sweep_smem(N, coarse_n);
+    if (blocks < 1 || blocks > 2147483647LL || smem > SMEM_MAX)
+        return (int)cudaErrorInvalidValue;
+    const cudaError_t e = allow_smem(sweep_warm_kernel<SDF_KIND, LANES>, smem,
+                                     granted);
+    if (e != cudaSuccess) return (int)e;
+    sweep_warm_kernel<SDF_KIND, LANES><<<(unsigned)blocks, BLOCK, smem, stream>>>(
+        pts, t_warm, pose, starts, durs, coeffs, t_star, d_star, grad, P, N,
+        coarse_n, rounds, warm_window, bps, sp, fp);
+    return (int)cudaGetLastError();
+}
+
 // K1 is the call with B = 1; K2 any B.  Arrays carry a leading B:
-// pts (B, P, 3), t_warm (B, P), pose (B, coarse_n, 12), starts/durs (B, N),
-// coeffs (B, N, 6, 3) -> t_star, d_star (B, P), grad (B, P, 3).
+// pts (B, P, 3), t_warm (B, P), pose (B, coarse_n, 12) (16-byte aligned),
+// starts/durs (B, N), coeffs (B, N, 6, 3) -> t_star, d_star (B, P),
+// grad (B, P, 3).  lanes: threads per point, 1 or 16 (fused_zoom._lanes_for).
 extern "C" int isdf_sweep_warm_fused(
     const float* pts, const float* t_warm, const float* pose,
     const float* starts, const float* durs, const float* coeffs,
     float* t_star, float* d_star, float* grad, int B, int P, int N,
-    int coarse_n, int rounds, float warm_window, ShapeSpec sp, FlatArgs fp,
-    void* stream) {
+    int coarse_n, int rounds, float warm_window, int lanes, ShapeSpec sp,
+    FlatArgs fp, void* stream) {
     if (sp.kind != SDF_KIND) return (int)cudaErrorInvalidValue;
-    const int bps = (P + BLOCK - 1) / BLOCK;
-    const long long blocks = (long long)bps * B;
-    if (blocks < 1 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    sweep_warm_kernel<SDF_KIND><<<(unsigned)blocks, BLOCK, table_bytes(N),
-                                  (cudaStream_t)stream>>>(
-        pts, t_warm, pose, starts, durs, coeffs, t_star, d_star, grad, P, N,
-        coarse_n, rounds, warm_window, bps, sp, fp);
+    if (lanes == 1)
+        return launch_sweep<1>(pts, t_warm, pose, starts, durs, coeffs, t_star,
+                               d_star, grad, B, P, N, coarse_n, rounds,
+                               warm_window, sp, fp, (cudaStream_t)stream);
+    if (lanes == 2 * ZK)
+        return launch_sweep<2 * ZK>(pts, t_warm, pose, starts, durs, coeffs,
+                                    t_star, d_star, grad, B, P, N, coarse_n,
+                                    rounds, warm_window, sp, fp,
+                                    (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int LANES>
+static int launch_zoom(const float* pts, const float* t0, const float* w0,
+                       const float* starts, const float* durs,
+                       const float* coeffs, float* t_star, int P, int N,
+                       int rounds, ShapeSpec sp, FlatArgs fp,
+                       cudaStream_t stream) {
+    static size_t granted = 0;
+    const int blocks = (P + BLOCK / LANES - 1) / (BLOCK / LANES);
+    const size_t smem = table_floats(N) * sizeof(float);
+    if (blocks < 1 || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = allow_smem(zoom_refine_kernel<SDF_KIND, LANES>, smem,
+                                     granted);
+    if (e != cudaSuccess) return (int)e;
+    zoom_refine_kernel<SDF_KIND, LANES><<<blocks, BLOCK, smem, stream>>>(
+        pts, t0, w0, starts, durs, coeffs, t_star, P, N, rounds, sp, fp);
     return (int)cudaGetLastError();
 }
 
 extern "C" int isdf_zoom_refine(
     const float* pts, const float* t0, const float* w0, const float* starts,
     const float* durs, const float* coeffs, float* t_star, int P, int N,
-    int rounds, ShapeSpec sp, FlatArgs fp, void* stream) {
+    int rounds, int lanes, ShapeSpec sp, FlatArgs fp, void* stream) {
     if (sp.kind != SDF_KIND) return (int)cudaErrorInvalidValue;
-    const int blocks = (P + BLOCK - 1) / BLOCK;
-    zoom_refine_kernel<SDF_KIND><<<blocks, BLOCK, table_bytes(N),
-                                   (cudaStream_t)stream>>>(
-        pts, t0, w0, starts, durs, coeffs, t_star, P, N, rounds, sp, fp);
-    return (int)cudaGetLastError();
+    if (lanes == 1)
+        return launch_zoom<1>(pts, t0, w0, starts, durs, coeffs, t_star, P, N,
+                              rounds, sp, fp, (cudaStream_t)stream);
+    if (lanes == ZK)
+        return launch_zoom<ZK>(pts, t0, w0, starts, durs, coeffs, t_star, P,
+                               N, rounds, sp, fp, (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
 }

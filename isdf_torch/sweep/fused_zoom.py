@@ -14,8 +14,17 @@ Each wrapper, on CUDA tensors, launches the hand-written kernel in
 ``*_ref``, the same function written with PyTorch operations (same candidate
 lattice, tie rule and branch pick).  The source is compiled with nvcc at
 first use into ``isdf_torch/_build/``, one library per body-SDF kind
-(shapes/spec.py), and loaded through plain C entry points.  ``LAUNCHES``,
-``LAUNCHES_BATCHED`` and ``LAUNCHES_ZOOM`` count kernel launches.
+(shapes/spec.py), and loaded through plain C entry points; the registers and
+spills ptxas reports for each kernel are kept beside the library
+(:func:`ptxas_report`).  ``LAUNCHES``, ``LAUNCHES_BATCHED`` and
+``LAUNCHES_ZOOM`` count kernel launches.
+
+A launch gives each query point one thread or several (one per zoom
+candidate, the sweep's two zooms side by side), by its size alone
+(:func:`_lanes_for`): the single-trajectory sweeps leave most of the card
+idle with one thread a point, the large batched sweep fills it.  Every lane
+count is an instantiation of the one kernel and gives bitwise the same
+results.
 
 Only t* leaves the sweep kernels as a result the optimizer uses; callers
 re-evaluate SDF(p, t*) differentiably outside (envelope theorem).
@@ -27,6 +36,7 @@ import ctypes
 import hashlib
 import itertools
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -52,9 +62,18 @@ BUILD_DIR = _PKG / "_build"
 # -fmad=false: the kernels round op by op as their plain versions do (see the
 # note in sweep_warm.cu); no --use_fast_math
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
 N_COEF = 6            # the kernels' piece degree (MINCO s = 3)
-MAX_PIECES = 256      # keeps the per-block tables under 48 KB of shared memory
+MAX_PIECES = 256      # pieces of one trajectory the kernels take
+SMEM_MAX = 232448     # shared memory of one block on sm_90 (227 KB)
+TABLE_FLOATS = 3 * 8 + 2 + 1   # a piece in shared memory (pose_chain.cuh)
+BLOCK = 128           # threads per block
+ZOOM_LANES = 8        # K4's threads a point on a small launch: one a candidate
+SWEEP_LANES = 16      # K1/K2's: zoom A and zoom B side by side
+# K1/K2/K4 launches of at most this many points take several threads a
+# point, larger ones one: the crossing measured on an H100 (PERF.md §6)
+LANES_MAX_POINTS = 16384
 
 _libs: Dict[int, ctypes.CDLL] = {}
 
@@ -68,6 +87,20 @@ class _ShapeSpecC(ctypes.Structure):
 class _FlatArgsC(ctypes.Structure):
     _fields_ = [("grav", ctypes.c_float), ("kd", ctypes.c_float),
                 ("cp", ctypes.c_float), ("veps", ctypes.c_float)]
+
+
+def _lanes_for(B: int, P: int) -> int:
+    """Threads per query point of a K1/K2 launch of B scenarios × P points:
+    SWEEP_LANES while B·P ≤ LANES_MAX_POINTS, where one thread a point
+    leaves SMs idle, else 1.  K4 takes ZOOM_LANES where this takes more
+    than one."""
+    return SWEEP_LANES if B * P <= LANES_MAX_POINTS else 1
+
+
+def sweep_smem_bytes(N: int, coarse_n: int) -> int:
+    """Shared memory of one block of the sweep kernels: the coarse pose
+    table (12 floats a row) and N pieces' tables."""
+    return 4 * (12 * coarse_n + TABLE_FLOATS * N)
 
 
 def _nvcc() -> str:
@@ -97,9 +130,43 @@ def build_jobs(kinds: Optional[Iterable[int]] = None):
             for k in (KINDS if kinds is None else kinds)]
 
 
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_report(lib: Path):
+    """What ptxas said of each kernel of a built library → [(kernel,
+    registers, spill-store bytes, spill-load bytes, stack bytes)], the
+    kernel as ``name<template arguments>``."""
+    out, name, frame = [], None, None
+    path = _report_path(lib)
+    for line in path.read_text().splitlines() if path.exists() else ():
+        m = re.search(r"Compiling entry function '(_Z\d+)?(\w+?)'", line)
+        if m:
+            mangled = m.group(2)
+            n = int(m.group(1)[2:]) if m.group(1) else len(mangled)
+            args = re.findall(r"Li(\d+)E", mangled[n:])
+            name = mangled[:n] + (f"<{','.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            st, sl = (frame[1], frame[2]) if frame else (0, 0)
+            out.append((name, int(m.group(1)), st, sl,
+                        frame[0] if frame else 0))
+            name, frame = None, None
+    return out
+
+
 def compile_jobs(jobs) -> Dict[str, Path]:
     """Compile every job whose library is not yet built, one nvcc process
-    each, all started together → {label: library path}."""
+    each, all started together → {label: library path}.  What ptxas
+    reports of a library's kernels is written beside it
+    (:func:`ptxas_report`)."""
     out = {label: lib for label, _, _, lib in jobs}
     todo = [j for j in jobs if not j[3].exists()]
     if not todo:
@@ -122,6 +189,7 @@ def compile_jobs(jobs) -> Dict[str, Path]:
                 errors.append(f"{source.name}, {label}:\n{err}")
             else:
                 os.replace(tmp, lib)
+                _report_path(lib).write_text(err)
         if errors:
             raise RuntimeError("nvcc failed to build " + "\n".join(errors))
     finally:
@@ -155,11 +223,11 @@ def _load(kind: int) -> ctypes.CDLL:
         fn = lib.isdf_sweep_warm_fused
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, _ShapeSpecC, _FlatArgsC,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, _ShapeSpecC,
+                          _FlatArgsC, ctypes.c_void_p])
         fn = lib.isdf_zoom_refine
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                        + [_ShapeSpecC, _FlatArgsC, ctypes.c_void_p])
         _libs[kind] = lib
     return lib
@@ -203,7 +271,17 @@ def _check_sweep_args(pts, t_warm, pose_table, starts, durs, coeffs,
     if (durs.shape != lead + (N,) or starts.shape != lead + (N,)
             or coeffs.shape[:-2] != lead + (N,)):
         raise ValueError("starts/durs/coeffs disagree on the piece count")
+    check_smem(N, coarse_n)
     return P, N
+
+
+def check_smem(N: int, coarse_n: int) -> None:
+    """The kernels stage the pose table and the piece tables of a scenario
+    in one block's shared memory: refuse what does not fit."""
+    if sweep_smem_bytes(N, coarse_n) > SMEM_MAX:
+        raise ValueError(f"coarse_n = {coarse_n} with N = {N} pieces needs "
+                         f"{sweep_smem_bytes(N, coarse_n)} bytes of shared "
+                         f"memory, more than a block's {SMEM_MAX}")
 
 
 def _check_cuda_inputs(shape, ins, coeffs, N, rounds):
@@ -233,6 +311,14 @@ def _stream(dev) -> int:
         return torch.cuda.current_stream().cuda_stream
 
 
+def check_blocks(B: int, P: int, lanes: int) -> None:
+    """A launch's one-dimensional grid holds at most 2^31 − 1 blocks."""
+    per = BLOCK // lanes
+    if B * ((P + per - 1) // per) > 2 ** 31 - 1:
+        raise ValueError(f"B = {B} scenarios of P = {P} points exceed the "
+                         "2^31 - 1 blocks of one launch; split the batch")
+
+
 def _launch_sweep(shape, params, pts, t_warm, pose_table, starts, durs,
                   coeffs, B, P, N, coarse_n, rounds, warm_window):
     """One launch of sweep_warm_kernel over B scenarios → (t*, d*, grad)."""
@@ -240,20 +326,21 @@ def _launch_sweep(shape, params, pts, t_warm, pose_table, starts, durs,
                                    pose_table=pose_table, starts=starts,
                                    durs=durs, coeffs=coeffs), coeffs, N,
                        rounds)
+    if pose_table.data_ptr() % 16:
+        raise ValueError("pose_table must be 16-byte aligned")
     t_star = torch.empty(t_warm.shape, dtype=torch.float32, device=pts.device)
     d_star = torch.empty_like(t_star)
     grad = torch.empty(pts.shape, dtype=torch.float32, device=pts.device)
     if B * P == 0:
         return t_star, d_star, grad, False
-    if B * ((P + 127) // 128) > 2 ** 31 - 1:
-        raise ValueError(f"B = {B} scenarios of P = {P} points exceed the "
-                         "2^31 - 1 blocks of one launch; split the batch")
+    lanes = _lanes_for(B, P)
+    check_blocks(B, P, lanes)
     err = _load(shape.spec.kind).isdf_sweep_warm_fused(
         pts.data_ptr(), t_warm.data_ptr(), pose_table.data_ptr(),
         starts.data_ptr(), durs.data_ptr(), coeffs.data_ptr(),
         t_star.data_ptr(), d_star.data_ptr(), grad.data_ptr(),
-        B, P, N, coarse_n, rounds, float(warm_window), _spec_c(shape.spec),
-        _flat_c(params), _stream(pts.device))
+        B, P, N, coarse_n, rounds, float(warm_window), lanes,
+        _spec_c(shape.spec), _flat_c(params), _stream(pts.device))
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
     return t_star, d_star, grad, True
@@ -341,7 +428,8 @@ def zoom_refine(shape, params, pts, t0, w0, starts, durs, coeffs,
     err = _load(shape.spec.kind).isdf_zoom_refine(
         pts.data_ptr(), t0.data_ptr(), w0.data_ptr(), starts.data_ptr(),
         durs.data_ptr(), coeffs.data_ptr(), t_star.data_ptr(), P, N, rounds,
-        _spec_c(shape.spec), _flat_c(params), _stream(pts.device))
+        ZOOM_LANES if _lanes_for(1, P) > 1 else 1, _spec_c(shape.spec),
+        _flat_c(params), _stream(pts.device))
     if err != 0:
         raise RuntimeError(f"zoom kernel launch failed: CUDA error {err}")
     LAUNCHES_ZOOM += 1

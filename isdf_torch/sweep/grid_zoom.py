@@ -50,6 +50,7 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "grid_sweep.cu"
 ZOOM_K = 4        # zoom candidates per round
 SCAN_K = 8        # coarse-scan group: coarse_n must be a multiple of it
 PRE_ROUNDS = 2    # rounds of the warm pre-zoom
+LANES = ZOOM_K    # threads per query point in the kernel: one a candidate
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -173,6 +174,7 @@ def _check_args(pts, t_warm, starts, durs, coeffs, coarse_n):
     if (durs.shape != lead + (N,) or starts.shape != lead + (N,)
             or coeffs.shape[:-2] != lead + (N,)):
         raise ValueError("starts/durs/coeffs disagree on the piece count")
+    fused_zoom.check_smem(N, coarse_n)
     return P, N
 
 
@@ -199,9 +201,7 @@ def _launch(grid: GridField, params, pts, t_warm, starts, durs, coeffs, B, P,
     grad = torch.empty(pts.shape, dtype=torch.float32, device=pts.device)
     if B * P == 0:
         return t_star, d_star, grad, False
-    if B * ((P + 127) // 128) > 2 ** 31 - 1:
-        raise ValueError(f"B = {B} scenarios of P = {P} points exceed the "
-                         "2^31 - 1 blocks of one launch; split the batch")
+    fused_zoom.check_blocks(B, P, LANES)
     err = _load().isdf_grid_sweep_warm_fused(
         pts.data_ptr(), t_warm.data_ptr(), starts.data_ptr(),
         durs.data_ptr(), coeffs.data_ptr(), t_star.data_ptr(),

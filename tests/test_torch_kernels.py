@@ -177,8 +177,9 @@ def test_build_starts_one_compile_per_kind(monkeypatch, tmp_path):
     defines = sorted(a for p in started for a in p.cmd if a.startswith("-D"))
     assert defines == sorted(f"-DSDF_KIND={k}" for k in KINDS)
     assert all(str(fused_zoom.SOURCE) in p.cmd for p in started)
-    built = sorted(f.name for f in tmp_path.iterdir())
+    built = sorted(f.name for f in tmp_path.iterdir() if f.suffix == ".so")
     assert len(built) == len(KINDS) - 1 and not any("_k7_" in n for n in built)
+    assert not any("_k7_" in f.name for f in tmp_path.iterdir())
     assert {make_shape(n).spec.kind for n in SHAPE_REGISTRY} == set(KINDS)
 
 
@@ -380,3 +381,294 @@ def test_grid_branches_launch_the_kernel_on_card(monkeypatch):
     assert grid_zoom.LAUNCHES_GRID == before + 2
     for a in (s, t, g, sc, tc, gc):
         assert a.is_cuda and bool(torch.isfinite(a).all())
+
+
+# ---------------------------------------------------------------------------
+# the lanes of a point, the shared-memory tables and the ragged edge
+
+@pytest.mark.parametrize("B,P,lanes", [
+    (1, 1, fused_zoom.SWEEP_LANES),
+    (1, 4096, fused_zoom.SWEEP_LANES),
+    (1, fused_zoom.LANES_MAX_POINTS, fused_zoom.SWEEP_LANES),
+    (1, fused_zoom.LANES_MAX_POINTS + 1, 1),
+    (fused_zoom.LANES_MAX_POINTS // 512, 512, fused_zoom.SWEEP_LANES),
+    (fused_zoom.LANES_MAX_POINTS // 512 + 1, 512, 1),
+    (4096, 512, 1),
+])
+def test_lanes_follow_the_launch_size(B, P, lanes):
+    """K1/K2 give a point SWEEP_LANES threads up to LANES_MAX_POINTS points
+    in the launch, one beyond; the rule reads B·P alone."""
+    assert fused_zoom._lanes_for(B, P) == lanes
+    assert fused_zoom._lanes_for(P, B) == lanes
+
+
+def test_block_count_limit():
+    """The one-dimensional grid holds 2^31 − 1 blocks; eight lanes a point
+    need eight times the blocks."""
+    B = 2 ** 24 - 1
+    fused_zoom.check_blocks(B, 16384, 1)           # 2^31 − 128 blocks
+    fused_zoom.check_blocks(B, 2048, 8)
+    with pytest.raises(ValueError, match="split the batch"):
+        fused_zoom.check_blocks(B, 16384 + 1, 1)
+    with pytest.raises(ValueError, match="split the batch"):
+        fused_zoom.check_blocks(B, 16384, 8)
+
+
+def test_wrappers_reject_tables_past_shared_memory():
+    """The pose table and the piece tables of a scenario must fit one
+    block's shared memory: every sweep wrapper refuses a coarse_n past it,
+    on any device."""
+    N = 5
+    fit = (fused_zoom.SMEM_MAX // 4 - fused_zoom.TABLE_FLOATS * N) // 12
+    fit -= fit % 8
+    assert fused_zoom.sweep_smem_bytes(N, fit) <= fused_zoom.SMEM_MAX
+    assert fused_zoom.sweep_smem_bytes(N, fit + 8) > fused_zoom.SMEM_MAX
+    assert fit >= 2048                   # the audit's cap fits
+    shape, params, (pts, tw, _, starts, durs, coeffs) = _inputs(
+        "Ball", "cpu", P=8, N=N)
+    pose = torch.zeros(fit + 8, 12)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_zoom.sweep_warm_fused(shape, params, pts, tw, pose, starts,
+                                    durs, coeffs, coarse_n=fit + 8)
+    grid, gparams, gargs = _grid_inputs("cpu", P=8, N=N)
+    with pytest.raises(ValueError, match="shared memory"):
+        grid_zoom.grid_sweep_warm_fused(grid, gparams, *gargs,
+                                        coarse_n=fit + 8)
+
+
+PTXAS_SAMPLE = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z17sweep_warm_kernelILi3ELi8EEvPKfS1_S1_S1_S1_S1_PfS2_S2_iiiifi9ShapeSpec8FlatArgs' for 'sm_90a'
+ptxas info    : Function properties for _Z17sweep_warm_kernelILi3ELi8EEvPKfS1_S1_S1_S1_S1_PfS2_S2_iiiifi9ShapeSpec8FlatArgs
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 536 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z17grid_sweep_kernelILi4EEvPKfS1_S1_S1_S1_PfS2_S2_iiiiff9GridFieldS3_8FlatArgsi' for 'sm_90a'
+ptxas info    : Function properties for _Z17grid_sweep_kernelILi4EEvPKfS1_S1_S1_S1_PfS2_S2_iiiiff9GridFieldS3_8FlatArgsi
+    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 500 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path):
+    lib = tmp_path / "sweep_warm_k3_0123.so"
+    assert fused_zoom.ptxas_report(lib) == []           # nothing built
+    (tmp_path / "sweep_warm_k3_0123.ptxas.txt").write_text(PTXAS_SAMPLE)
+    assert fused_zoom.ptxas_report(lib) == [
+        ("sweep_warm_kernel<3,8>", 72, 0, 0, 0),
+        ("grid_sweep_kernel<4>", 255, 8, 12, 16)]
+
+
+def test_build_keeps_what_ptxas_says(monkeypatch, tmp_path):
+    """A successful compile writes the compiler's report beside the
+    library; the build asks ptxas for it."""
+
+    class FakeProc:
+        def __init__(self, cmd, **kw):
+            self.cmd, self.returncode = cmd, None
+
+        def communicate(self):
+            self.returncode = 0
+            return "", PTXAS_SAMPLE
+
+        def poll(self):
+            return self.returncode
+
+    monkeypatch.setattr(fused_zoom, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(fused_zoom, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(fused_zoom.subprocess, "Popen", FakeProc)
+    assert "-v" in fused_zoom.NVCC_FLAGS
+    lib = grid_zoom.build()
+    assert fused_zoom.ptxas_report(lib)[1][0] == "grid_sweep_kernel<4>"
+
+
+def _hover_inputs(name, dev, P=1024, coarse_n=64, seed=5):
+    """K1's inputs on a three-piece trajectory whose middle piece hovers
+    (zero velocity and acceleration): every coarse row in it has the same
+    pose, so the coarse scan meets exact ties, and so do the zoom's
+    candidates there."""
+    shape, params, (pts, tw, _, starts, durs, coeffs) = _inputs(
+        name, dev, P=P, N=3, coarse_n=coarse_n, seed=seed)
+    coeffs = coeffs.clone()
+    hover = torch.tensor([4.0, 1.2, 0.6], dtype=F32, device=dev)
+    coeffs[1] = 0.0
+    coeffs[1, 0] = hover
+    traj = PolyTraj(durs, coeffs)
+    ts = torch.linspace(0.0, 1.0, coarse_n, dtype=F32, device=dev)
+    xs, Rs = traj_states(traj, params, ts * traj.total_duration)
+    pose = torch.cat([xs, Rs.reshape(-1, 9)], dim=1).contiguous()
+    rng = np.random.default_rng(seed)
+    near = torch.as_tensor(rng.uniform(-1.0, 1.0, size=(P, 3)), dtype=F32,
+                           device=dev) + hover
+    return shape, params, (near.contiguous(), tw, pose, starts, durs,
+                           coeffs.contiguous())
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python3 chip_smoke.py runs the "
+                    "kernels too)")
+    return torch.device("cuda")
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_hover_ties_bitwise_on_card():
+    """(a) A hovering piece: many coarse rows tie exactly.  K1, K2 and K3
+    split the rows over a point's lanes and must still take the first
+    minimum in (row, group) order: t* and d* (K3: and the gradient) bitwise
+    equal to the plain versions, K2 also to per-scenario K1."""
+    dev = _cuda()
+    shape, params, args = _hover_inputs("CappedCone", dev)
+    tk, dk, gk = fused_zoom.sweep_warm_fused(shape, params, *args)
+    tr, dr, gr = fused_zoom.sweep_warm_fused_ref(shape, params, *args)
+    assert _same((tk, dk), (tr, dr))
+    assert float((gk - gr).abs().max()) <= G_ATOL
+    per = [_hover_inputs("CappedCone", dev, seed=5 + b)[2] for b in range(4)]
+    batched = tuple(torch.stack([a[i] for a in per]).contiguous()
+                    for i in range(6))
+    t2, d2, g2 = fused_zoom.sweep_warm_fused_batched(shape, params, *batched)
+    for b, a in enumerate(per):
+        assert _same((t2[b], d2[b], g2[b]),
+                     fused_zoom.sweep_warm_fused(shape, params, *a))
+    tr2, dr2, _ = fused_zoom.sweep_warm_fused_batched_ref(shape, params,
+                                                          *batched)
+    assert _same((t2, d2), (tr2, dr2))
+    grid, gparams, _ = _grid_inputs(dev, P=8)
+    pts, tw, _, starts, durs, coeffs = args
+    gargs = (pts, tw, starts, durs, coeffs)
+    got = grid_zoom.grid_sweep_warm_fused(grid, gparams, *gargs)
+    want = grid_zoom.grid_sweep_warm_fused_ref(grid, gparams, *gargs)
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+def test_ragged_edge_bitwise_on_card(kernel):
+    """(b) P = 4093, a multiple of neither the block nor the lanes: the
+    lanes of the points past P take part in every shuffle and store
+    nothing; every point's result bitwise equal to the plain version's."""
+    dev = _cuda()
+    P = 4093
+    if kernel == "K3":
+        grid, params, args = _grid_inputs(dev, P=P)
+        got = grid_zoom.grid_sweep_warm_fused(grid, params, *args)
+        want = grid_zoom.grid_sweep_warm_fused_ref(grid, params, *args)
+        assert _same(got, want)
+        return
+    shape, params, args = _inputs("RoundedCone", dev, P=P)
+    if kernel == "K4":
+        pts, tw, _, starts, durs, coeffs = args
+        w0 = torch.full_like(tw, 0.3)
+        got = fused_zoom.zoom_refine(shape, params, pts, tw, w0, starts, durs,
+                                     coeffs)
+        want = fused_zoom.zoom_refine_ref(shape, params, pts, tw, w0, starts,
+                                          durs, coeffs)
+        assert torch.equal(got, want)
+        return
+    if kernel == "K2":
+        args = tuple(torch.stack([a, a]).contiguous() for a in args)
+        tk, dk, gk = fused_zoom.sweep_warm_fused_batched(shape, params, *args)
+        tr, dr, gr = fused_zoom.sweep_warm_fused_batched_ref(shape, params,
+                                                             *args)
+    else:
+        tk, dk, gk = fused_zoom.sweep_warm_fused(shape, params, *args)
+        tr, dr, gr = fused_zoom.sweep_warm_fused_ref(shape, params, *args)
+    assert _same((tk, dk), (tr, dr))
+    assert float((gk - gr).abs().max()) <= G_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("above", [False, True])
+def test_batched_lanes_threshold_bitwise_on_card(above, monkeypatch):
+    """(c) K2 at the largest launch that takes sixteen lanes a point and at
+    the next larger one, which takes one: each bitwise equal to K1 launched
+    per scenario and, on five scenarios, to the plain
+    version; and the same inputs through every lane count the kernel
+    takes, forced, give the same bits."""
+    dev = _cuda()
+    P = 512
+    B = fused_zoom.LANES_MAX_POINTS // P + int(above)
+    assert fused_zoom._lanes_for(B, P) == (
+        1 if above else fused_zoom.SWEEP_LANES)
+    per = [_inputs("CappedCone", dev, P=P, N=4, seed=100 + b)
+           for b in range(B)]
+    shape, params, _ = per[0]
+    args = tuple(torch.stack([p[2][i] for p in per]).contiguous()
+                 for i in range(6))
+    got = fused_zoom.sweep_warm_fused_batched(shape, params, *args)
+    for b in range(B):
+        assert _same((g[b] for g in got),
+                     fused_zoom.sweep_warm_fused(shape, params, *per[b][2]))
+    rows = [0, B // 3, B // 2, 2 * B // 3, B - 1]
+    for b in rows:
+        tr, dr, _ = fused_zoom.sweep_warm_fused_ref(shape, params,
+                                                    *per[b][2])
+        assert _same((got[0][b], got[1][b]), (tr, dr))
+    for lanes in (1, fused_zoom.SWEEP_LANES):
+        monkeypatch.setattr(fused_zoom, "_lanes_for", lambda B, P: lanes)
+        assert _same(got, fused_zoom.sweep_warm_fused_batched(shape, params,
+                                                              *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_pose_table_past_48kb_bitwise_on_card(kernel):
+    """(d) coarse_n = 2048, the audit's cap: the pose table (96 KB) and the
+    piece tables in one block's dynamic shared memory, past the 48 KB
+    default; cold sweep, rounds 24, bitwise equal to the plain version
+    (K1: t*, d*; K3: t*, d*, gradient)."""
+    dev = _cuda()
+    kw = dict(coarse_n=2048, rounds=24, warm_window=0.3)
+    assert fused_zoom.sweep_smem_bytes(5, 2048) > 48 * 1024
+    if kernel == "K3":
+        grid, params, (pts, tw, *rest) = _grid_inputs(dev)
+        args = (pts, torch.zeros_like(tw), *rest)
+        assert _same(grid_zoom.grid_sweep_warm_fused(grid, params, *args,
+                                                     **kw),
+                     grid_zoom.grid_sweep_warm_fused_ref(grid, params, *args,
+                                                         **kw))
+        return
+    shape, params, (pts, tw, *rest) = _inputs("CappedCone", dev,
+                                              coarse_n=2048)
+    args = (pts, torch.zeros_like(tw), *rest)
+    tk, dk, gk = fused_zoom.sweep_warm_fused(shape, params, *args, **kw)
+    tr, dr, gr = fused_zoom.sweep_warm_fused_ref(shape, params, *args, **kw)
+    assert _same((tk, dk), (tr, dr))
+    assert float((gk - gr).abs().max()) <= G_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coarse_n", [8, 16])
+def test_small_pose_table_bitwise_on_card(coarse_n):
+    """coarse_n = 8 is one group of pose rows, so the last eight of a
+    point's sixteen lanes scan no row: they must not win the lanes'
+    combine.  K1 and K2 at coarse_n = 8 and 16, warm and cold: t* and d*
+    bitwise equal to the plain versions, K2 also to per-scenario K1."""
+    dev = _cuda()
+    for cold in (False, True):
+        kw = dict(coarse_n=coarse_n, rounds=12)
+        per = []
+        for b in range(4):
+            shape, params, (pts, tw, *rest) = _inputs(
+                "CappedCone", dev, P=512, coarse_n=coarse_n, seed=20 + b)
+            per.append((pts, torch.zeros_like(tw) if cold else tw, *rest))
+        assert fused_zoom._lanes_for(4, 512) == fused_zoom.SWEEP_LANES
+        for a in per:
+            tk, dk, gk = fused_zoom.sweep_warm_fused(shape, params, *a, **kw)
+            tr, dr, gr = fused_zoom.sweep_warm_fused_ref(shape, params, *a,
+                                                         **kw)
+            assert _same((tk, dk), (tr, dr))
+            assert float((gk - gr).abs().max()) <= G_ATOL
+        batched = tuple(torch.stack([a[i] for a in per]).contiguous()
+                        for i in range(6))
+        got = fused_zoom.sweep_warm_fused_batched(shape, params, *batched,
+                                                  **kw)
+        for b, a in enumerate(per):
+            assert _same((g[b] for g in got),
+                         fused_zoom.sweep_warm_fused(shape, params, *a, **kw))
+        tr2, dr2, _ = fused_zoom.sweep_warm_fused_batched_ref(
+            shape, params, *batched, **kw)
+        assert _same(got[:2], (tr2, dr2))
