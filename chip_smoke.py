@@ -48,14 +48,33 @@ Phases (any failure exits non-zero):
                procedural map3) through PlannerManager.plan, K3's counter set
                to 0 just before the plan and read just after; then
                batched_solve_chunked with the L robot at the bench's width
-               (B = 128), the counter set to 0 just before.
-Phases 3–5 run before phase 2: a process that has run the kernel phase's
+               (B = 128), the counter set to 0 just before;
+  6. planar  — the paper's 2-D experiments through plan_planar at their full
+               configuration: demo 7 (Ball on planar_forest, the rotation
+               decoupled) and demo 8 (a bar, Box 1.4 × 0.2 × 0.2, on
+               planar_gaps, the yaw optimized), K1 under the planar pose map,
+               its counter set to 0 just before each plan and read just
+               after, then audit_planar;
+  7. fly     — closed-loop replanning among two moving obstacles
+               (fly_closed_loop on the JAX package's `closed-loop` cli scene),
+               K1's counter set to 0 just before the flight and read just
+               after; then the planar instantiations no demo reaches, each
+               through an entry point (K2: sweep_sdf_warm on a batch of
+               planar trajectories; K4: zoom_refine; K3: audit_planar with
+               the L robot), each counter set to 0 just before;
+  8. planar kernels — after phase 2: K1 under the planar map at demo 8's
+               size (warm and cold; beside it the tilt map on the same
+               tables) and demo 7's, K2 at B = 8 (also against K1 per
+               scenario), K4 and K3 (the L field, P = 4096) along demo 8's
+               trajectory, each against its plain version and timed.
+Phases 3–7 run before phase 2: a process that has run the kernel phase's
 torch.profiler traces planned and solved more slowly after them (PERF.md
 §6).  With ``--profile`` it then plans once more under torch.profiler,
 solves the B = 4096 batch once more under it and plans the mesh scene once
-more under it, and prints the device's busy share of each.  Then it prints the card's
-name and power limit, one JSON line with the kernels' numbers, and as the
-last line {"ok": true, "device": {...}}.
+more under it, and prints the device's busy share of each.  Then it prints
+the card's name and power limit, one JSON line with the kernels' numbers
+(one entry per kernel and pose map, with the launches of each path that
+runs it), and as the last line {"ok": true, "device": {...}}.
 Without a CUDA card, or without the package beside it, it exits non-zero
 and prints no result.
 """
@@ -165,22 +184,51 @@ OPS_SDF = {
 }
 
 
+# The planar (SE(2)) chain of pose_chain.cuh's pose_at(PlanarArgs): the local
+# time (3) and the position Horner of the three axes alone (10 each, no
+# velocity or acceleration); the pose is x = (p0, p1, z_ref) and R = Rz(p2):
+# cos and sin count one operation each, as in OPS_SDF, and −sin one more;
+# Rᵀ(p − x) without Rz's zeros and ones: 3 differences, 2 × (2 products + 1
+# sum), the z row a copy.
+OPS_PVAJ_PLANAR = 3 + 3 * 10
+OPS_POSE_PLANAR = 3
+OPS_REL_PLANAR = 3 + 2 * 3
+
+
+def chain_ops(planar: bool):
+    """(pvaj, pose, rel) operations of one pose-chain evaluation under the
+    planar or the tilt map."""
+    if planar:
+        return OPS_PVAJ_PLANAR, OPS_POSE_PLANAR, OPS_REL_PLANAR
+    return OPS_PVAJ, OPS_POSE, OPS_REL
+
+
+def is_planar(params) -> bool:
+    from isdf_torch.core.flatness import PlanarPose
+
+    return isinstance(params, PlanarPose)
+
+
 def sdf_ops(shape) -> int:
     return OPS_SDF[shape.spec.kind] + (OPS_POSED if shape.spec.posed else 0)
 
 
-def k1_ops_per_query(shape, coarse_n: int, rounds: int, k: int = 8) -> int:
+def k1_ops_per_query(shape, coarse_n: int, rounds: int, k: int = 8,
+                     planar: bool = False) -> int:
+    pvaj, pose, rel = chain_ops(planar)
     sdf = sdf_ops(shape)
-    scan = coarse_n * (OPS_REL + sdf)
-    zooms = 2 * rounds * (k * (OPS_CAND + OPS_PVAJ + OPS_POSE + OPS_REL + sdf)
+    scan = coarse_n * (rel + sdf)
+    zooms = 2 * rounds * (k * (OPS_CAND + pvaj + pose + rel + sdf)
                           + OPS_PLATEAU)
-    epilogue = OPS_PVAJ + OPS_POSE + OPS_REL + 4 * sdf   # dual: value + 3
+    epilogue = pvaj + pose + rel + 4 * sdf      # dual: value + 3
     return scan + zooms + epilogue + 3
 
 
-def k4_ops_per_query(shape, rounds: int, k: int = 8) -> int:
-    return rounds * (k * (OPS_CAND + OPS_PVAJ + OPS_POSE + OPS_REL
-                          + sdf_ops(shape)) + OPS_PLATEAU)
+def k4_ops_per_query(shape, rounds: int, k: int = 8,
+                     planar: bool = False) -> int:
+    pvaj, pose, rel = chain_ops(planar)
+    return rounds * (k * (OPS_CAND + pvaj + pose + rel + sdf_ops(shape))
+                     + OPS_PLATEAU)
 
 
 def bound_ms(ops: int, nbytes: int):
@@ -193,17 +241,17 @@ def bound_ms(ops: int, nbytes: int):
 
 
 def k1_bound_ms(shape, P: int, N: int, coarse_n: int, rounds: int,
-                B: int = 1):
+                B: int = 1, planar: bool = False):
     """K1's bound, and K2's with B scenarios: the same work per query, and
     every scenario's own pose table and piece tables read once."""
-    ops = B * P * k1_ops_per_query(shape, coarse_n, rounds)
+    ops = B * P * k1_ops_per_query(shape, coarse_n, rounds, planar=planar)
     nbytes = B * (4 * (P * (3 + 1) + coarse_n * 12 + N * (2 + 18))
                   + 4 * P * 5)
     return bound_ms(ops, nbytes)
 
 
-def k4_bound_ms(shape, P: int, N: int, rounds: int):
-    return bound_ms(P * k4_ops_per_query(shape, rounds),
+def k4_bound_ms(shape, P: int, N: int, rounds: int, planar: bool = False):
+    return bound_ms(P * k4_ops_per_query(shape, rounds, planar=planar),
                     4 * (P * (3 + 2) + N * (2 + 18)) + 4 * P)
 
 
@@ -218,26 +266,28 @@ OPS_PLATEAU4 = 13        # k = 4: min 3, tie band 4, run mean 5, shrink 1
 K3_PRE = 2               # warm pre-zoom rounds
 
 
-def k3_ops(B: int, P: int, coarse_n: int, rounds: int, k: int = 4) -> int:
+def k3_ops(B: int, P: int, coarse_n: int, rounds: int, k: int = 4,
+           planar: bool = False) -> int:
     """K3's operations for B scenarios of P queries.  The coarse poses are a
     function of the time alone: once per scenario and coarse time (the
-    clipped time j·step, the piece's pos/vel/acc and the tilt), as the
-    plain version computes them; per query and coarse time p_rel and the
-    pooled trilinear value."""
-    pose = OPS_PVAJ + OPS_POSE + OPS_REL + OPS_COORD + OPS_TRI
-    per_scenario = coarse_n * (3 + OPS_PVAJ + OPS_POSE)
-    scan = coarse_n * (OPS_REL + OPS_COORD + OPS_TRI)
+    clipped time j·step, the piece's pos/vel/acc and the tilt, or the
+    planar chain), as the plain version computes them; per query and coarse
+    time p_rel and the pooled trilinear value."""
+    pvaj, rot, rel = chain_ops(planar)
+    pose = pvaj + rot + rel + OPS_COORD + OPS_TRI
+    per_scenario = coarse_n * (3 + pvaj + rot)
+    scan = coarse_n * (rel + OPS_COORD + OPS_TRI)
     zooms = (K3_PRE + rounds) * (k * (OPS_CAND + pose) + OPS_PLATEAU4)
     per_query = scan + zooms + pose + (pose + OPS_TRI_GRAD) + 3
     return B * (per_scenario + P * per_query)
 
 
 def k3_bound_ms(grid, P: int, N: int, coarse_n: int, rounds: int,
-                B: int = 1):
+                B: int = 1, planar: bool = False):
     """K3's bound: the operations of :func:`k3_ops`; the bytes of the field
     and its pooled twin read once and of every scenario's points, warm
     starts, piece tables and results."""
-    ops = k3_ops(B, P, coarse_n, rounds)
+    ops = k3_ops(B, P, coarse_n, rounds, planar=planar)
     nbytes = (4 * (grid.field.numel() + grid.pooled.numel())
               + B * (4 * (P * (3 + 1) + N * (2 + 18)) + 4 * P * 5))
     return bound_ms(ops, nbytes)
@@ -304,6 +354,9 @@ def timed(fn, kernel_word: str, what: str) -> dict:
 
 
 def kernel_inputs(torch, traj, params, pts, t_warm, coarse_n):
+    """K1's arguments for one trajectory.  ``params`` picks the pose map of
+    the coarse pose table (sweep_sdf.traj_states): under PlanarPose the
+    trajectory's third axis is the yaw and the table's z column z_ref."""
     from isdf_torch.sweep.sweep_sdf import traj_states
 
     total = traj.total_duration
@@ -433,11 +486,17 @@ def hold_k1(shape, params, args, kw, size_name, plain_reps: int = 10):
         shape, params, *args, **kw), "sweep_warm_kernel", what)
     plain_ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused_ref(
         shape, params, *args, **kw), warmup=1, reps=plain_reps)
+    planar = is_planar(params)
     bound, bound_by, ops, nbytes = k1_bound_ms(
-        shape, pts.shape[0], durs.shape[0], kw["coarse_n"], kw["rounds"])
-    rec = dict(size=size_name, shape=shape.name, P=pts.shape[0],
+        shape, pts.shape[0], durs.shape[0], kw["coarse_n"], kw["rounds"],
+        planar=planar)
+    rec = dict(size=size_name, shape=shape.name,
+               pose="planar" if planar else "flat", P=pts.shape[0],
                N=durs.shape[0], coarse_n=kw["coarse_n"], rounds=kw["rounds"],
-               max_abs_d=max_d, t_share=share, max_abs_grad=g_err, **times,
+               cold=bool((args[1] == 0).all()), max_abs_d=max_d,
+               t_share=share, max_abs_grad=g_err,
+               t_equal=float((tk == tr).float().mean()),
+               d_equal=float((dk == dr).float().mean()), **times,
                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, ops=ops,
                bytes=nbytes)
     print("K1 vs plain " + json.dumps(rec), flush=True)
@@ -682,9 +741,12 @@ def hold_k3(grid, params, args, kw, label, plain_reps: int = 10,
                        reps=plain_reps)
     B = pts.shape[0] if batched else 1
     P = pts.shape[-2]
+    planar = is_planar(params)
     bound, bound_by, ops, nbytes = k3_bound_ms(
-        grid, P, durs.shape[-1], kw["coarse_n"], kw["rounds"], B=B)
-    rec = dict(case=label, field=list(grid.dims), B=B, P=P,
+        grid, P, durs.shape[-1], kw["coarse_n"], kw["rounds"], B=B,
+        planar=planar)
+    rec = dict(case=label, pose="planar" if planar else "flat",
+               field=list(grid.dims), B=B, P=P,
                N=durs.shape[-1], coarse_n=kw["coarse_n"],
                rounds=kw["rounds"], cold=bool((args[1] == 0).all()),
                max_abs_d=max_d, t_share=share, max_abs_grad=g_err,
@@ -927,16 +989,19 @@ def device_busy(prof, wall: float, kernel_word: str) -> dict:
                 sweep_kernel_s=k_ns * 1e-9)
 
 
-def phase_profile(pm, batch_case, pm_mesh) -> None:
+def phase_profile(pm, batch_case, pm_mesh, planar, dev) -> None:
     """``--profile``: one more demo-1 plan (warm: A* already built), one
-    more B = 4096 batched solve and one more mesh plan, each under
-    torch.profiler tracing the card only → the device's busy share of each
-    one's wall time, and the sweep kernel's part of the busy time."""
+    more B = 4096 batched solve, one more mesh plan, one more demo-8 planar
+    plan and one more flight, each under torch.profiler tracing the card
+    only → the device's busy share of each one's wall time, and the sweep
+    kernel's part of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from isdf_torch.parallel import batch as pb
+    from isdf_torch.plan import fly_closed_loop, plan_planar
 
     shape, conf, sb = batch_case
+    d8 = planar["demo8"]
     runs = (
         ("plan", lambda: pm.plan(np.asarray(START), np.asarray(GOAL),
                                  max_iters=MAX_ITERS)),
@@ -945,6 +1010,10 @@ def phase_profile(pm, batch_case, pm_mesh) -> None:
         ("mesh plan", lambda: pm_mesh.plan(np.asarray(START6),
                                            np.asarray(GOAL6),
                                            max_iters=MAX_ITERS)),
+        ("planar demo8", lambda: plan_planar(
+            d8["params_conf"], d8["shape_obj"], d8["pts2"], (3.0, 3.0),
+            (21.0, 21.0), yaw_opt=True, device=dev)),
+        ("fly", lambda: fly_closed_loop(**fly_scene(dev), **FLY_RUN)),
     )
     for label, run in runs:
         torch.cuda.synchronize()
@@ -1217,14 +1286,422 @@ def phase_mesh_batch(dev, shape):
     return rec
 
 
-def kernel_line(name, replaces, launches, max_abs_err, rec,
+# the paper's 2-D experiments, demos 7 and 8 (isdf_tpu/demos.py:152-175), at
+# their full configuration: nothing cut
+DEMO7 = dict(occupancy_resolution=0.5, integralIntervs=16,
+             sweep_coarse_samples=48, sweep_refine_rounds=8, vmax=5.0,
+             omgmax=5.0, thetamax=1e3, safety_hor=0.3,
+             max_obstacle_points=2048, inittime=2.0, weight_p=8000.0)
+DEMO8 = dict(DEMO7, sweep_coarse_samples=64, vmax=4.0, omgmax=3.0,
+             safety_hor=0.25, box_x=1.4, box_y=0.2, box_z=0.2)
+PLANAR_DEMOS = (
+    ("demo7", DEMO7, "Ball", "planar_forest", (2.0, 2.0), (28.0, 28.0),
+     False),
+    ("demo8", DEMO8, "Box", "planar_gaps", (3.0, 3.0), (21.0, 21.0), True),
+)
+
+# the closed-loop flight of the JAX package's cli (isdf_tpu/cli.py:99-140,
+# `closed-loop` with its defaults): Ball, a slit wall, two moving obstacles
+# drawn from default_rng(0), replan every 1.5 s for up to 30 s, 12 back-end
+# iterations a replan
+FLY = dict(mapBound=(0.0, 14.0, 0.0, 10.0, 0.0, 4.0),
+           occupancy_resolution=0.5, kernel_size=3, safety_hor=0.3,
+           integralIntervs=8, sweep_coarse_samples=16, sweep_refine_rounds=6,
+           max_obstacle_points=512, vmax=4.0, omgmax=6.0, thetamax=1.2,
+           mem_size=8)
+FLY_START, FLY_GOAL = (1.0, 5.0, 2.0), (13.0, 5.0, 2.0)
+FLY_RUN = dict(replan_dt=1.5, max_time=30.0, max_iters=12, goal_tol=1.0)
+
+
+def phase_planar(dev):
+    """plan_planar on demos 7 and 8, K1's counter set to 0 just before each
+    plan and read just after; K1 must launch once per back-end evaluation
+    and once for the plan's final sweep → {label: record with the shape,
+    the trajectory and the map's points}."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.plan import audit_planar, plan_planar
+    from isdf_torch.shapes import make_shape
+    from isdf_torch.sweep import fused_zoom
+    from isdf_torch.world import maps_gen
+
+    out = {}
+    for label, d, shape_name, map_name, start, goal, yaw_opt in PLANAR_DEMOS:
+        conf = Config(**d)
+        shape = make_shape(shape_name, conf)
+        pts2 = getattr(maps_gen, map_name)()
+        fused_zoom.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = plan_planar(conf, shape, pts2, start, goal, yaw_opt=yaw_opt,
+                          device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_zoom.LAUNCHES
+        m = res.metrics
+        check(res.success, f"{label}: plan_planar failed: {m}")
+        audit = audit_planar(shape, res.traj, pts2, device=dev)
+        phases = {k: m[k] for k in ("front_end_s", "mid_end_s",
+                                    "back_end_s", "audit_s")}
+        rec = dict(demo=label, shape=shape_name, map=map_name,
+                   map_points=len(pts2), yaw_opt=yaw_opt,
+                   n_pieces=m["n_pieces"],
+                   obstacle_points=m["parallel_points_num"],
+                   mid_end_iters=m["mid_end_iters"],
+                   mid_end_evals=m["mid_end_evals"],
+                   back_end_iters=m["back_end_iters"],
+                   back_end_evals=m["back_end_evals"],
+                   final_cost=m["final_cost"],
+                   total_duration=m["total_duration"],
+                   min_swept_sdf=m["min_swept_sdf"], audit_planar=audit,
+                   k1_launches=launches, wall_s=wall, seconds=phases)
+        print("planar " + json.dumps(rec), flush=True)
+        traj = res.traj
+        check(math.isfinite(m["final_cost"]),
+              f"{label}: non-finite final cost")
+        check(bool(torch.isfinite(traj.coeffs).all())
+              and bool(torch.isfinite(traj.durations).all()),
+              f"{label}: non-finite trajectory")
+        ends = traj.junction_positions()[[0, -1], :2].cpu().numpy()
+        check(np.linalg.norm(ends[0] - start) < 1e-3
+              and np.linalg.norm(ends[1] - goal) < 1e-3,
+              f"{label}: ends {ends.tolist()} are not {start} → {goal}")
+        check(m["min_swept_sdf"] > 0.0,
+              f"{label}: min swept SDF {m['min_swept_sdf']!r} ≤ 0")
+        check(audit > 0.0, f"{label}: audit_planar {audit!r} ≤ 0")
+        check(launches == m["back_end_evals"] + 1,
+              f"{label}: {launches} K1 launches, expected "
+              f"{m['back_end_evals']} + 1")
+        out[label] = dict(rec, shape_obj=shape, traj=traj.detach(),
+                          pts2=pts2, params_conf=conf)
+    return out
+
+
+def fly_scene(dev) -> dict:
+    """The cli flight's arguments of fly_closed_loop: the manager, the
+    static map, the obstacles and the controls' generator (both drawn from
+    default_rng(0)), start and goal."""
+    from isdf_torch.config import Config
+    from isdf_torch.plan import PlannerManager
+    from isdf_torch.world import MovingObstacle, maps_gen
+
+    pm = PlannerManager(Config(**FLY), shape_name="Ball", device=dev)
+    static = maps_gen.gene_wall(6.0, 0.0, 0.6, 3.5, 3.0, res=0.25)
+    rng = np.random.default_rng(0)
+    obstacles = [MovingObstacle(pos=rng.uniform((4, 2), (11, 8)),
+                                radius=0.4, height=3.0) for _ in range(2)]
+    return dict(pm=pm, static_points=static, obstacles=obstacles,
+                start=np.asarray(FLY_START), goal=np.asarray(FLY_GOAL),
+                rng=rng)
+
+
+def phase_fly(dev):
+    """fly_closed_loop on the cli's scene, K1's counter set to 0 just before
+    the flight and read just after; K1 must launch once per back-end
+    evaluation of every replan, and once per audit sweep that found voxels
+    → its record."""
+    import torch
+    from isdf_torch.plan import fly_closed_loop
+    from isdf_torch.sweep import fused_zoom
+
+    scene = fly_scene(dev)
+    pm = scene["pm"]
+    conf = pm.conf
+    plans = []
+    plan = pm.plan
+
+    def recording(*a, **k):
+        res = plan(*a, **k)
+        plans.append(res.metrics)
+        return res
+
+    pm.plan = recording
+    fused_zoom.LAUNCHES = 0
+    t0 = time.perf_counter()
+    log = fly_closed_loop(**scene, **FLY_RUN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_zoom.LAUNCHES
+    # one launch per back-end evaluation, and one per audit round that found
+    # occupied voxels near the trajectory (an audit with none sweeps
+    # nothing): at most one before every safety re-solve and one more
+    evals = sum(m["back_end_evals"] for m in plans)
+    audits_max = sum(min(m.get("safety_replans", 0) + 1,
+                         conf.safety_replan_rounds) for m in plans)
+    rep = log.replan_wall_s
+    rec = dict(reached=log.reached, replans=len(rep), ticks=len(log.times),
+               min_body_sdf=log.min_sdf,
+               audited_ticks=len(log.min_body_sdf),
+               replan_p50_s=statistics.median(rep) if rep else None,
+               replan_max_s=max(rep) if rep else None,
+               replan_s=rep, setup_s_mean=statistics.mean(log.setup_wall_s),
+               setup_s=log.setup_wall_s,
+               back_end_evals=[m["back_end_evals"] for m in plans],
+               mid_end_evals=[m["mid_end_evals"] for m in plans],
+               mid_end_s=[m["mid_end_s"] for m in plans],
+               back_end_s=[m["back_end_s"] for m in plans],
+               final_costs=[m["final_cost"] for m in plans],
+               k1_launches=launches, audit_sweeps=launches - evals,
+               wall_s=wall, pose_kernels=pm.pose_kernels is not None)
+    print("fly " + json.dumps(rec), flush=True)
+    check(log.reached, f"fly: never reached the goal ({len(log.times)} "
+                       f"ticks, last {log.positions[-1].tolist()})")
+    check(log.min_sdf > 0.0, f"fly: body SDF {log.min_sdf!r} ≤ 0")
+    check(all(np.isfinite(p).all() for p in log.positions),
+          "fly: non-finite commanded position")
+    check(launches > 0, "fly: the flight never launched K1")
+    check(evals <= launches <= evals + audits_max,
+          f"fly: {launches} K1 launches, the replans' {evals} evaluations "
+          f"and up to {audits_max} audit sweeps imply {evals} to "
+          f"{evals + audits_max}")
+    return rec
+
+
+def plane_points(torch, traj, pts2, P, dev, seed=11):
+    """P query points at z = 0 as (P, 3) float32 on the card: the 2-D map's
+    points nearest to a planar trajectory's path, and where the map has
+    fewer than P, points drawn within ±2 m of the path (seeded)."""
+    ts = torch.linspace(0.0, 1.0, 64, device=dev) * traj.total_duration
+    path = traj.pos(ts)[:, :2]
+    p2 = torch.as_tensor(pts2, dtype=torch.float32, device=dev)
+    near = torch.cdist(p2, path).min(dim=1).values
+    p2 = p2[torch.argsort(near)[:P]]
+    if len(p2) < P:
+        gen = torch.Generator().manual_seed(seed)
+        k = P - len(p2)
+        at = path[torch.randint(len(path), (k,), generator=gen).to(dev)]
+        p2 = torch.cat([p2, at + (4 * torch.rand(k, 2, generator=gen)
+                                  - 2).to(dev)])
+    return torch.cat([p2, torch.zeros_like(p2[:, :1])], dim=1).contiguous()
+
+
+def planar_batch(torch, traj, B, seed):
+    """B planar trajectories through demo 8's waypoints, each piece's
+    duration scaled by 0.7–1.3 → the batched PolyTraj."""
+    from isdf_torch.core import minco
+    from isdf_torch.core.poly import PolyTraj
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dev = traj.durations.device
+    T = traj.durations[None] * (0.7 + 0.6 * torch.rand(
+        (B,) + tuple(traj.durations.shape), generator=gen)).to(dev)
+    q = traj.junction_positions()[1:-1]
+    ends = traj.junction_positions()[[0, -1]]
+    head = torch.zeros(3, 3, device=dev)
+    tail = torch.zeros(3, 3, device=dev)
+    head[:, 0], tail[:, 0] = ends[0], ends[1]
+    coeffs = torch.stack([minco.solve(q, T[b], head, tail)
+                          for b in range(B)])
+    return PolyTraj(T.contiguous(), coeffs.contiguous())
+
+
+def phase_planar_paths(dev, planar, obj_path):
+    """The planar instantiations that no demo reaches, each through an entry
+    point a caller uses, its counter set to 0 just before and read just
+    after: K2 through sweep_sdf_warm on a batch of B = 8 planar
+    trajectories, K4 through zoom_refine on demo 8's points, K3 through
+    audit_planar with the mesh robot (the L) along demo 8's trajectory
+    → {kernel: launches}."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.core.flatness import PlanarPose
+    from isdf_torch.plan import audit_planar
+    from isdf_torch.shapes import shape_from_config
+    from isdf_torch.sweep import fused_zoom, grid_zoom
+    from isdf_torch.sweep.sweep_sdf import sweep_sdf_warm
+
+    d8 = planar["demo8"]
+    params = PlanarPose(0.0)
+    conf = d8["params_conf"]
+    traj, shape = d8["traj"], d8["shape_obj"]
+    pts = plane_points(torch, traj, d8["pts2"], 2048, dev)
+    out = {}
+    trajb = planar_batch(torch, traj, 8, seed=7)
+    ptsb = pts[None].expand(8, -1, -1).contiguous()
+    twb = torch.zeros(ptsb.shape[:2], device=dev)
+    fused_zoom.LAUNCHES_BATCHED = 0
+    sdf, _, _ = sweep_sdf_warm(shape, trajb, params, ptsb, twb,
+                               coarse_n=conf.sweep_coarse_samples,
+                               refine_rounds=conf.sweep_refine_rounds,
+                               device=dev)
+    torch.cuda.synchronize()
+    out["K2"] = fused_zoom.LAUNCHES_BATCHED
+    check(bool(torch.isfinite(sdf).all()), "planar K2 path: non-finite SDF")
+
+    durs = traj.durations.contiguous()
+    t0 = torch.rand(pts.shape[0], generator=torch.Generator().manual_seed(8)
+                    ).to(dev) * traj.total_duration
+    fused_zoom.LAUNCHES_ZOOM = 0
+    t_ref = fused_zoom.zoom_refine(
+        shape, params, pts, t0.contiguous(), torch.full_like(t0, 0.2),
+        (torch.cumsum(durs, 0) - durs).contiguous(), durs,
+        traj.coeffs.contiguous(), rounds=conf.sweep_refine_rounds)
+    torch.cuda.synchronize()
+    out["K4"] = fused_zoom.LAUNCHES_ZOOM
+    check(bool(torch.isfinite(t_ref).all()), "planar K4 path: non-finite t*")
+
+    lshape = shape_from_config(Config(**DEMO6, inputdata=obj_path),
+                               device=dev)
+    grid_zoom.LAUNCHES_GRID = 0
+    audit = audit_planar(lshape, traj, d8["pts2"], device=dev)
+    torch.cuda.synchronize()
+    out["K3"] = grid_zoom.LAUNCHES_GRID
+    print(f"planar paths: K2 {out['K2']} launch(es) through sweep_sdf_warm "
+          f"(B = 8), K4 {out['K4']} through zoom_refine, K3 {out['K3']} "
+          f"through audit_planar with the L robot (min swept SDF "
+          f"{audit!r} along demo 8's path)", flush=True)
+    check(math.isfinite(audit), "planar K3 path: non-finite audit")
+    for k, n in out.items():
+        check(n > 0, f"planar {k} path never launched {k}")
+    return out
+
+
+def phase_planar_kernels(dev, planar, obj_path):
+    """The planar pose map in the kernel phase: K1 at demo 8's size (Box,
+    P = 2048, demo 8's trajectory, coarse 64, rounds 8, warm and cold) and
+    demo 7's (Ball, coarse 48), K2 at B = 8 (also bit for bit against K1
+    per scenario), K4 on demo 8's case and K3 on the L field at P = 4096
+    along demo 8's trajectory, each against its plain version and timed
+    → {kernel: [records]}."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.core.flatness import FlatParams, PlanarPose
+    from isdf_torch.shapes import shape_from_config
+    from isdf_torch.sweep import fused_zoom
+    from isdf_torch.sweep.fast_eval import sdf_at_time_c
+
+    params = PlanarPose(0.0)
+    gen = torch.Generator().manual_seed(9)
+    recs = {"K1": [], "K2": [], "K3": [], "K4": []}
+    for label in ("demo8", "demo7"):
+        d = planar[label]
+        traj, shape, conf = d["traj"], d["shape_obj"], d["params_conf"]
+        pts = plane_points(torch, traj, d["pts2"], 2048, dev)
+        tw = (torch.rand(pts.shape[0], generator=gen).to(dev)
+              * traj.total_duration)
+        kw = dict(coarse_n=conf.sweep_coarse_samples,
+                  rounds=conf.sweep_refine_rounds, warm_window=0.3)
+        for cold in ((False, True) if label == "demo8" else (False,)):
+            t_warm = torch.zeros_like(tw) if cold else tw
+            args = kernel_inputs(torch, traj, params, pts, t_warm,
+                                 kw["coarse_n"])
+            recs["K1"].append(hold_k1(shape, params, args, kw,
+                                      label + ("/cold" if cold else "")))
+        if label == "demo8":
+            # the tilt map at a like size: the same tables and points, the
+            # third axis read as a height
+            flat = FlatParams.from_config(conf)
+            args = kernel_inputs(torch, traj, flat, pts, tw, kw["coarse_n"])
+            recs["K1 tilt"] = [hold_k1(shape, flat, args, kw,
+                                       "demo8 tables, tilt")]
+    # K2 at B = 8, and K4, on demo 8's case
+    d8 = planar["demo8"]
+    traj, shape, conf = d8["traj"], d8["shape_obj"], d8["params_conf"]
+    pts = plane_points(torch, traj, d8["pts2"], 2048, dev)
+    B = 8
+    trajb = planar_batch(torch, traj, B, seed=10)
+    coarse_n, rounds = conf.sweep_coarse_samples, conf.sweep_refine_rounds
+    kw = dict(coarse_n=coarse_n, rounds=rounds, warm_window=0.3)
+    per = []
+    for b in range(B):
+        tb = type(traj)(trajb.durations[b], trajb.coeffs[b])
+        tw = (torch.rand(pts.shape[0], generator=gen).to(dev)
+              * tb.total_duration)
+        per.append(kernel_inputs(torch, tb, params, pts, tw, coarse_n))
+    args = tuple(torch.stack([a[i] for a in per]).contiguous()
+                 for i in range(6))
+    what = "K2 Box/demo8 B8 planar"
+    tk, dk, gk = fused_zoom.sweep_warm_fused_batched(shape, params, *args,
+                                                     **kw)
+    tr, dr, gr = fused_zoom.sweep_warm_fused_batched_ref(shape, params,
+                                                         *args, **kw)
+    one = [fused_zoom.sweep_warm_fused(shape, params, *a, **kw) for a in per]
+    torch.cuda.synchronize()
+    t1, d1, g1 = (torch.stack(o) for o in zip(*one))
+    same = bool(torch.equal(tk, t1) and torch.equal(dk, d1)
+                and torch.equal(gk, g1))
+    max_d, share, g_err, checks = in_bands(what, tk, dk, gk, tr, dr, gr)
+    times = timed(lambda: fused_zoom.sweep_warm_fused_batched(
+        shape, params, *args, **kw), "sweep_warm_kernel", what)
+    plain_ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused_batched_ref(
+        shape, params, *args, **kw), warmup=1, reps=3)
+    bound, bound_by, ops, nbytes = k1_bound_ms(
+        shape, pts.shape[0], traj.n_pieces, coarse_n, rounds, B=B,
+        planar=True)
+    rec = dict(shape=shape.name, pose="planar", case="demo8", B=B,
+               P=pts.shape[0], N=traj.n_pieces, coarse_n=coarse_n,
+               rounds=rounds, max_abs_d=max_d, t_share=share,
+               max_abs_grad=g_err, t_equal=float((tk == tr).float().mean()),
+               d_equal=float((dk == dr).float().mean()),
+               equals_per_scenario_k1=same, **times, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=bound_by, ops=ops, bytes=nbytes)
+    print("K2 vs plain, planar " + json.dumps(rec), flush=True)
+    check_kernel(same, f"{what}: differs from K1 launched per scenario")
+    for ok, msg in checks:
+        check_kernel(ok, msg)
+    recs["K2"].append(rec)
+
+    durs = traj.durations.contiguous()
+    tw = torch.rand(pts.shape[0], generator=gen).to(dev) * traj.total_duration
+    w0 = 0.05 + 0.95 * torch.rand(pts.shape[0], generator=gen).to(dev)
+    a4 = (pts, tw.contiguous(), w0.contiguous(),
+          (torch.cumsum(durs, 0) - durs).contiguous(), durs,
+          traj.coeffs.contiguous())
+    what = "K4 Box/demo8 planar"
+    tk = fused_zoom.zoom_refine(shape, params, *a4, rounds=rounds)
+    tr = fused_zoom.zoom_refine_ref(shape, params, *a4, rounds=rounds)
+    pw = (pts[:, 0], pts[:, 1], pts[:, 2])
+    with torch.no_grad():
+        d_r = sdf_at_time_c(shape, traj, params, pw, tr)
+        dd = (sdf_at_time_c(shape, traj, params, pw, tk) - d_r).abs()
+    torch.cuda.synchronize()
+    share = float(((tk - tr).abs() < T_AGREE).float().mean())
+    times = timed(lambda: fused_zoom.zoom_refine(shape, params, *a4,
+                                                 rounds=rounds),
+                  "zoom_refine_kernel", what)
+    plain_ms = cuda_ms(lambda: fused_zoom.zoom_refine_ref(
+        shape, params, *a4, rounds=rounds), warmup=1, reps=5)
+    bound, bound_by, ops, nbytes = k4_bound_ms(shape, pts.shape[0],
+                                               traj.n_pieces, rounds,
+                                               planar=True)
+    rec = dict(shape=shape.name, pose="planar", case="demo8",
+               P=pts.shape[0], N=traj.n_pieces, rounds=rounds,
+               t_share=share, t_equal=float((tk == tr).float().mean()),
+               max_abs_t=float((tk - tr).abs().max()),
+               max_abs_d=float(dd.max()),
+               **times, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=bound_by, ops=ops, bytes=nbytes)
+    print("K4 vs plain, planar " + json.dumps(rec), flush=True)
+    check(bool(torch.isfinite(tk).all()), f"{what}: non-finite t*")
+    check_kernel(share >= T_SHARE,
+                 f"{what}: only {share:.4f} of points agree on t*")
+    check_kernel(bool((dd <= D_ATOL + D_RTOL * d_r.abs()).all()),
+                 f"{what}: SDF at t* differs by {float(dd.max()):.3g}")
+    recs["K4"].append(rec)
+
+    # K3 on the L robot's field along demo 8's trajectory
+    grid = shape_from_config(Config(**DEMO6, inputdata=obj_path),
+                             device=dev).grid
+    pts3 = plane_points(torch, traj, d8["pts2"], 4096, dev)
+    tw = (torch.rand(pts3.shape[0], generator=gen).to(dev)
+          * traj.total_duration)
+    args = (pts3, tw.contiguous(), (torch.cumsum(durs, 0) - durs).contiguous(),
+            durs, traj.coeffs.contiguous())
+    recs["K3"].append(hold_k3(grid, params, args, kw, "L/demo8 planar"))
+    return recs
+
+
+def kernel_line(name, replaces, launches, max_abs_err, rec, pose, paths,
                 source="isdf_torch/csrc/sweep_warm.cu"):
+    """One kernel and pose map of the kernels line: ``launches`` the sum of
+    the counts its paths read (``paths``: {path: launches})."""
     return {
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces,
-        "launches": launches, "max_abs_err": max_abs_err, "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-        "bound_by": rec["bound_by"], "library_ms": None,
+        "replaces": replaces, "pose": pose,
+        "launches": launches, "launches_by_path": paths,
+        "max_abs_err": max_abs_err, "ms": rec["ms"],
+        "call_ms": rec["call_ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": None,
     }
 
 
@@ -1264,13 +1741,17 @@ def main() -> int:
         k2_launches, batch_case = phase_batch(dev)
         _, k3_launches, pm_mesh = phase_mesh_plan(dev, obj_path)
         phase_mesh_batch(dev, pm_mesh.shape)
+        planar = phase_planar(dev)
+        fly = phase_fly(dev)
+        planar_paths = phase_planar_paths(dev, planar, obj_path)
         k1_recs, slice_case = phase_kernels(dev)
         k2_recs = phase_k2(dev)
         k4_recs = phase_k4(dev, slice_case)
         k3_recs = phase_k3(dev, obj_path)
+        planar_recs = phase_planar_kernels(dev, planar, obj_path)
         check(not KERNEL_FAILURES, "; ".join(KERNEL_FAILURES))
         if "--profile" in sys.argv[1:]:
-            phase_profile(pm, batch_case, pm_mesh)
+            phase_profile(pm, batch_case, pm_mesh, planar, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1283,24 +1764,53 @@ def main() -> int:
     # slice's size, its launches from the mesh plan.  K4 has no caller in
     # the package, as zoom_refine has none in the JAX package: its path is
     # its own entry point, driven by phase_refine.
+    # Under the planar map: K1 at demo 8's size, its launches from the two
+    # planar demos; K2, K4 and K3 at their planar cases, their launches from
+    # the entry points of phase_planar_paths.
     k1_main = next(r for r in k1_recs
                    if r["size"] == "slice" and r["shape"] == "RoundedCone")
     k2_main = next(r for r in k2_recs if r.get("ms") and r["B"] == 128)
     k4_main = next(r for r in k4_recs if r["shape"] == "RoundedCone")
     k3_main = next(r for r in k3_recs if r["case"] == "L/slice")
+    k1_planar = planar_recs["K1"][0]
+    k1_paths = {"PlannerManager.plan demo 1": k1_launches,
+                "fly_closed_loop": fly["k1_launches"]}
+    k1p_paths = {f"plan_planar {k}": v["k1_launches"]
+                 for k, v in planar.items()}
     kernels = [
-        kernel_line("sweep_warm_fused", "isdf_tpu/sweep/pallas_zoom.py:414",
-                    k1_launches, max(r["max_abs_d"] for r in k1_recs),
-                    k1_main),
+        kernel_line("sweep_warm_fused", "isdf_tpu/sweep/pallas_zoom.py:419",
+                    sum(k1_paths.values()),
+                    max(r["max_abs_d"] for r in k1_recs), k1_main, "flat",
+                    k1_paths),
+        kernel_line("sweep_warm_fused", "isdf_tpu/sweep/pallas_zoom.py:419",
+                    sum(k1p_paths.values()),
+                    max(r["max_abs_d"] for r in planar_recs["K1"]),
+                    k1_planar, "planar", k1p_paths),
         kernel_line("sweep_warm_fused_batched",
-                    "isdf_tpu/sweep/pallas_zoom.py:450", k2_launches,
-                    k2_main["max_abs_d"], k2_main),
-        kernel_line("zoom_refine", "isdf_tpu/sweep/pallas_zoom.py:213",
+                    "isdf_tpu/sweep/pallas_zoom.py:458", k2_launches,
+                    k2_main["max_abs_d"], k2_main, "flat",
+                    {"batched_solve_chunked B = 128": k2_launches}),
+        kernel_line("sweep_warm_fused_batched",
+                    "isdf_tpu/sweep/pallas_zoom.py:458", planar_paths["K2"],
+                    planar_recs["K2"][0]["max_abs_d"], planar_recs["K2"][0],
+                    "planar", {"sweep_sdf_warm B = 8": planar_paths["K2"]}),
+        kernel_line("zoom_refine", "isdf_tpu/sweep/pallas_zoom.py:245",
                     k4_launches, max(r["max_abs_d"] for r in k4_recs),
-                    k4_main),
+                    k4_main, "flat", {"zoom_refine": k4_launches}),
+        kernel_line("zoom_refine", "isdf_tpu/sweep/pallas_zoom.py:245",
+                    planar_paths["K4"], planar_recs["K4"][0]["max_abs_d"],
+                    planar_recs["K4"][0], "planar",
+                    {"zoom_refine": planar_paths["K4"]}),
         kernel_line("grid_sweep_warm_fused",
-                    "isdf_tpu/sweep/pallas_grid_zoom.py:311", k3_launches,
-                    max(r["max_abs_d"] for r in k3_recs), k3_main,
+                    "isdf_tpu/sweep/pallas_grid_zoom.py:314", k3_launches,
+                    max(r["max_abs_d"] for r in k3_recs), k3_main, "flat",
+                    {"PlannerManager.plan demo 6": k3_launches},
+                    source="isdf_torch/csrc/grid_sweep.cu"),
+        kernel_line("grid_sweep_warm_fused",
+                    "isdf_tpu/sweep/pallas_grid_zoom.py:314",
+                    planar_paths["K3"], planar_recs["K3"][0]["max_abs_d"],
+                    planar_recs["K3"][0], "planar",
+                    {"audit_planar": planar_paths["K3"]},
                     source="isdf_torch/csrc/grid_sweep.cu"),
     ]
     smi = subprocess.run(

@@ -5,8 +5,11 @@ Drag-augmented net force zu = a + (dh/m)(1 + cp‖v‖_ε) v + g e₃ defines th
 body z-axis z = zu/‖zu‖; the tilt-only quaternion is the minimal rotation
 taking e₃ → z; ω follows from ż projected through the normalization
 Jacobian.  Gradients come from autograd.  All functions broadcast over
-leading batch dimensions.  (The planar SE(2) pose map waits for the planar
-slice of the port.)
+leading batch dimensions.
+
+The second pose map, :class:`PlanarPose`, is SE(2): the trajectory's third
+coordinate is the yaw ψ and the pose is ((x, y, z_ref), Rz(ψ)).  ``pose_of``
+and ``rates_of`` take either map.
 """
 
 from __future__ import annotations
@@ -98,11 +101,42 @@ def forward(vel, acc, jer, p: FlatParams):
     return quat, omg
 
 
-def pose_of(pos, vel, acc, jer, p: FlatParams):
-    """(p/v/a/j) → (position ℝ³, attitude R)."""
+@dataclass(frozen=True)
+class PlanarPose:
+    """SE(2) pose map of the planar planner: MINCO optimizes (x, y, ψ)
+    jointly and the robot pose is ((x, y, z_ref), Rz(ψ)).  Passing it where
+    a pose map is expected switches the sweep, the penalties and the
+    kernels to SE(2)."""
+
+    z_ref: float = 0.0
+
+
+POSE_MAPS = (FlatParams, PlanarPose)
+
+
+def pose_of(pos, vel, acc, jer, p):
+    """(p/v/a/j) → (position ℝ³, attitude R) under either pose map."""
+    if isinstance(p, PlanarPose):
+        yaw = pos[..., 2]
+        c, s = torch.cos(yaw), torch.sin(yaw)
+        zeros = torch.zeros_like(c)
+        ones = torch.ones_like(c)
+        R = torch.stack([c, -s, zeros, s, c, zeros, zeros, zeros, ones],
+                        dim=-1).reshape(yaw.shape + (3, 3))
+        pos3 = torch.stack([pos[..., 0], pos[..., 1],
+                            torch.full_like(c, p.z_ref)], dim=-1)
+        return pos3, R
     return pos, quat_to_rot(tilt_quat(vel, acc, p))
 
 
-def rates_of(pos, vel, acc, jer, p: FlatParams):
-    """(quat, ω) for the dynamic-feasibility penalties."""
+def rates_of(pos, vel, acc, jer, p):
+    """(quat, ω) for the dynamic-feasibility penalties under either map.
+    Planar: the yaw quaternion (no tilt) and ω = (0, 0, ψ̇)."""
+    if isinstance(p, PlanarPose):
+        half = 0.5 * pos[..., 2]
+        zeros = torch.zeros_like(half)
+        quat = torch.stack([torch.cos(half), zeros, zeros, torch.sin(half)],
+                           dim=-1)
+        omg = torch.stack([zeros, zeros, vel[..., 2]], dim=-1)
+        return quat, omg
     return forward(vel, acc, jer, p)

@@ -57,6 +57,9 @@
 //     2 * coarse_n / 8 pooled lookups and 27 evaluations, and P = 4096 is
 //     128 blocks.  The epilogue runs on lane 0.
 //
+// The pose map is a template parameter (pose_chain.cuh: FlatArgs or
+// PlanarArgs), both instantiated and chosen by the entry point's PoseArgs.
+//
 // Built with -fmad=false and written in the order of its plain PyTorch
 // version (sweep/grid_zoom.grid_sweep_warm_fused_ref), so the two round
 // alike op by op.
@@ -139,7 +142,9 @@ __device__ __forceinline__ float field_at(const GridField& G, const float r[3],
 }
 
 // body SDF of the field G at trajectory time t (t already in [0, total])
-__device__ __forceinline__ float sdf_at(const Tables& tb, const FlatArgs& fp,
+// under the pose map PM (FlatArgs or PlanarArgs, pose_chain.cuh)
+template <class PM>
+__device__ __forceinline__ float sdf_at(const Tables& tb, const PM& fp,
                                         const GridField& G, const float p[3],
                                         float t) {
     float x[3], R[9], r[3];
@@ -150,8 +155,8 @@ __device__ __forceinline__ float sdf_at(const Tables& tb, const FlatArgs& fp,
 
 // fixed-round k = 4 plateau zoom from (t, w) on the field G (lane_zoom);
 // returns the last round's minimum
-template <int LANES>
-__device__ __forceinline__ float zoom(const Tables& tb, const FlatArgs& fp,
+template <int LANES, class PM>
+__device__ __forceinline__ float zoom(const Tables& tb, const PM& fp,
                                       const GridField& G, const float p[3],
                                       float total, int rounds, float& t,
                                       float w, int lane) {
@@ -161,15 +166,16 @@ __device__ __forceinline__ float zoom(const Tables& tb, const FlatArgs& fp,
 }
 
 // block `blockIdx.x` covers points [blk * PPB, blk * PPB + PPB) of scenario
-// b = blockIdx.x / bps, LANES consecutive threads per point
-template <int LANES>
+// b = blockIdx.x / bps, LANES consecutive threads per point; PM is the pose
+// map
+template <int LANES, class PM>
 __global__ void __launch_bounds__(BLOCK)
 grid_sweep_kernel(const float* __restrict__ pts, const float* __restrict__ t_warm,
                   const float* __restrict__ starts, const float* __restrict__ durs,
                   const float* __restrict__ coeffs, float* __restrict__ t_star,
                   float* __restrict__ d_star, float* __restrict__ grad, int P,
                   int N, int coarse_n, int rounds, float warm_window,
-                  float w_seed_a, GridField fine, GridField pooled, FlatArgs fp,
+                  float w_seed_a, GridField fine, GridField pooled, PM fp,
                   int bps) {
     constexpr int PPB = BLOCK / LANES;
     extern __shared__ float4 smem4[];
@@ -225,19 +231,13 @@ grid_sweep_kernel(const float* __restrict__ pts, const float* __restrict__ t_war
     grad[3 * gi + 2] = dg[2];
 }
 
-// Plain C entry point (loaded with ctypes).  Launches on `stream` without
-// synchronising and returns cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take, or the error
-// of granting the shared memory.  Arrays carry a leading B: pts (B, P, 3),
-// t_warm (B, P), starts/durs (B, N), coeffs (B, N, 6, 3) -> t_star, d_star
-// (B, P), grad (B, P, 3); the single sweep is B = 1.
-// w_seed_a = warm_window * (2/3)^2, computed by the caller in double.
-extern "C" int isdf_grid_sweep_warm_fused(
-    const float* pts, const float* t_warm, const float* starts,
-    const float* durs, const float* coeffs, float* t_star, float* d_star,
-    float* grad, int B, int P, int N, int coarse_n, int rounds,
-    float warm_window, float w_seed_a, GridField fine, GridField pooled,
-    FlatArgs fp, void* stream) {
+template <class PM>
+static int launch_grid(const float* pts, const float* t_warm,
+                       const float* starts, const float* durs,
+                       const float* coeffs, float* t_star, float* d_star,
+                       float* grad, int B, int P, int N, int coarse_n,
+                       int rounds, float warm_window, float w_seed_a,
+                       GridField fine, GridField pooled, PM fp, void* stream) {
     static size_t granted = 0;
     const int bps = (P + BLOCK / LANES_K3 - 1) / (BLOCK / LANES_K3);
     const long long blocks = (long long)bps * B;
@@ -247,12 +247,37 @@ extern "C" int isdf_grid_sweep_warm_fused(
         || fine.ny < 3 || fine.nz < 3 || pooled.nx < 2 || pooled.ny < 2
         || pooled.nz < 2)
         return (int)cudaErrorInvalidValue;
-    const cudaError_t e = allow_smem(grid_sweep_kernel<LANES_K3>, smem,
+    const cudaError_t e = allow_smem(grid_sweep_kernel<LANES_K3, PM>, smem,
                                      granted);
     if (e != cudaSuccess) return (int)e;
-    grid_sweep_kernel<LANES_K3><<<(unsigned)blocks, BLOCK, smem,
-                                  (cudaStream_t)stream>>>(
+    grid_sweep_kernel<LANES_K3, PM><<<(unsigned)blocks, BLOCK, smem,
+                                      (cudaStream_t)stream>>>(
         pts, t_warm, starts, durs, coeffs, t_star, d_star, grad, P, N,
         coarse_n, rounds, warm_window, w_seed_a, fine, pooled, fp, bps);
     return (int)cudaGetLastError();
+}
+
+// Plain C entry point (loaded with ctypes).  Launches on `stream` without
+// synchronising and returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take, or the error
+// of granting the shared memory.  Arrays carry a leading B: pts (B, P, 3),
+// t_warm (B, P), starts/durs (B, N), coeffs (B, N, 6, 3) -> t_star, d_star
+// (B, P), grad (B, P, 3); the single sweep is B = 1.
+// w_seed_a = warm_window * (2/3)^2, computed by the caller in double.
+// pa: the pose map, tilt or planar.
+extern "C" int isdf_grid_sweep_warm_fused(
+    const float* pts, const float* t_warm, const float* starts,
+    const float* durs, const float* coeffs, float* t_star, float* d_star,
+    float* grad, int B, int P, int N, int coarse_n, int rounds,
+    float warm_window, float w_seed_a, GridField fine, GridField pooled,
+    PoseArgs pa, void* stream) {
+    if (pa.planar == 1)
+        return launch_grid(pts, t_warm, starts, durs, coeffs, t_star, d_star,
+                           grad, B, P, N, coarse_n, rounds, warm_window,
+                           w_seed_a, fine, pooled, planar_args(pa), stream);
+    if (pa.planar == 0)
+        return launch_grid(pts, t_warm, starts, durs, coeffs, t_star, d_star,
+                           grad, B, P, N, coarse_n, rounds, warm_window,
+                           w_seed_a, fine, pooled, flat_args(pa), stream);
+    return (int)cudaErrorInvalidValue;
 }

@@ -4,9 +4,10 @@
 //
 //   load_tables     stages one scenario's piece tables in shared memory
 //                   (pallas_zoom._load_coeff_tables);
-//   pose_at         position and quadrotor-tilt rotation at a time t, from
-//                   the located piece only (pallas_zoom._pvaj_rows +
-//                   fast_eval.pose_components);
+//   pose_at         position and rotation at a time t, from the located
+//                   piece only (pallas_zoom._pvaj_rows +
+//                   fast_eval.pose_components), under either pose map: the
+//                   quadrotor tilt (FlatArgs) or SE(2) (PlanarArgs);
 //   rel             p_rel = R^T (p - x) (fast_eval.rel_components);
 //   plateau_pick    the plateau-centred argmin of K candidates
 //                   (pallas_zoom._plateau_rows): K1/K4 zoom with K = 8, K3
@@ -52,12 +53,34 @@
 #define CSTRIDE 8                // floats per axis of a piece's coefficients
 #define FULL_MASK 0xffffffffu
 
-struct FlatArgs {
+// The pose maps.  A kernel takes one of them as a template parameter PM and
+// calls pose_at(tb, pm, t, x, R); the C entry points take a PoseArgs and
+// launch the instantiation its `planar` flag names.
+struct FlatArgs {      // quadrotor tilt (core/flatness.FlatParams)
     float grav;
     float kd;     // dh / mass
     float cp;
     float veps;
 };
+
+struct PlanarArgs {    // SE(2) (core/flatness.PlanarPose): the third axis is ψ
+    float z_ref;
+};
+
+// what the C entry points take: either map, by its flag
+struct PoseArgs {
+    int planar;        // 0: FlatArgs, 1: PlanarArgs
+    float grav, kd, cp, veps;
+    float z_ref;
+};
+
+static inline FlatArgs flat_args(const PoseArgs& pa) {
+    return FlatArgs{pa.grav, pa.kd, pa.cp, pa.veps};
+}
+
+static inline PlanarArgs planar_args(const PoseArgs& pa) {
+    return PlanarArgs{pa.z_ref};
+}
 
 // trajectory tables of one scenario, in shared memory
 struct Tables {
@@ -67,9 +90,9 @@ struct Tables {
     int N;
 };
 
-// trajectory state at time t (t already in [0, total])
-__device__ __forceinline__ void pose_at(const Tables& tb, const FlatArgs& fp,
-                                        float t, float x[3], float R[9]) {
+// the piece that holds time t and the local time in it → its coefficients
+__device__ __forceinline__ const float* locate(const Tables& tb, float t,
+                                               float& s) {
     // idx = #{n < N-1 : t > cum[n]}: first n in [0, N-1) with cum[n] >= t
     int lo = 0, hi = tb.N - 1;
     while (lo < hi) {
@@ -77,8 +100,41 @@ __device__ __forceinline__ void pose_at(const Tables& tb, const FlatArgs& fp,
         if (t > tb.cum[mid]) lo = mid + 1; else hi = mid;
     }
     const float2 sd = tb.sd[lo];
-    const float s = fminf(fmaxf(t - sd.x, 0.f), sd.y);
-    const float* c = tb.coef + lo * 3 * CSTRIDE;
+    s = fminf(fmaxf(t - sd.x, 0.f), sd.y);
+    return tb.coef + lo * 3 * CSTRIDE;
+}
+
+// position Horner of axis ax (c0..c5)
+__device__ __forceinline__ float horner_pos(const float* c, int ax, float s) {
+    const float4 a = *reinterpret_cast<const float4*>(c + ax * CSTRIDE);
+    const float2 e = *reinterpret_cast<const float2*>(c + ax * CSTRIDE + 4);
+    return ((((e.y * s + e.x) * s + a.w) * s + a.z) * s + a.y) * s + a.x;
+}
+
+// SE(2) pose at time t (t already in [0, total]): the position Horner of the
+// three axes alone, x = (p0, p1, z_ref) and R = Rz(p2) row-major, as
+// fast_eval.pose_components builds it.  sinf/cosf are the full-precision
+// routines (the sources are built without fast math), as torch.sin/cos of
+// a CUDA tensor call them.
+__device__ __forceinline__ void pose_at(const Tables& tb, const PlanarArgs& pp,
+                                        float t, float x[3], float R[9]) {
+    float s;
+    const float* c = locate(tb, t, s);
+    x[0] = horner_pos(c, 0, s);
+    x[1] = horner_pos(c, 1, s);
+    const float psi = horner_pos(c, 2, s);
+    x[2] = pp.z_ref;
+    const float cs = cosf(psi), sn = sinf(psi);
+    R[0] = cs;  R[1] = -sn; R[2] = 0.f;
+    R[3] = sn;  R[4] = cs;  R[5] = 0.f;
+    R[6] = 0.f; R[7] = 0.f; R[8] = 1.f;
+}
+
+// quadrotor-tilt pose at time t (t already in [0, total])
+__device__ __forceinline__ void pose_at(const Tables& tb, const FlatArgs& fp,
+                                        float t, float x[3], float R[9]) {
+    float s;
+    const float* c = locate(tb, t, s);
     float vel[3], acc[3];
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {

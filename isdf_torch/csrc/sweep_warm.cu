@@ -68,6 +68,9 @@
 // The body SDF is chosen at compile time: the file is compiled once per kind
 // with -DSDF_KIND=<id> (shapes/spec.py holds the ids), each into a library of
 // its own, so the kinds build in parallel and a launch loads only its own.
+// The pose map is a template parameter of every kernel (pose_chain.cuh:
+// FlatArgs, the quadrotor tilt; PlanarArgs, SE(2)), both instantiated in
+// each library and chosen by the entry points' PoseArgs.
 //
 // Built without --use_fast_math and with -fmad=false, and every expression is
 // written in the order its plain PyTorch version (fused_zoom.
@@ -423,8 +426,8 @@ __device__ __forceinline__ S sdf_shape(const ShapeSpec& sp, S x, S y, S z) {
     return sdf_body<KIND>(sp.p, x, y, z);
 }
 
-template <int KIND>
-__device__ __forceinline__ float sdf_at(const Tables& tb, const FlatArgs& fp,
+template <int KIND, class PM>
+__device__ __forceinline__ float sdf_at(const Tables& tb, const PM& fp,
                                         const ShapeSpec& sp, const float p[3],
                                         float t) {
     float x[3], R[9], r[3];
@@ -435,8 +438,8 @@ __device__ __forceinline__ float sdf_at(const Tables& tb, const FlatArgs& fp,
 
 // fixed-round k = 8 plateau zoom from (t, w) (lane_zoom); returns the last
 // round's min
-template <int KIND, int LANES>
-__device__ __forceinline__ float zoom(const Tables& tb, const FlatArgs& fp,
+template <int KIND, int LANES, class PM>
+__device__ __forceinline__ float zoom(const Tables& tb, const PM& fp,
                                       const ShapeSpec& sp, const float p[3],
                                       float total, int rounds, float& t,
                                       float w, int lane) {
@@ -448,7 +451,8 @@ __device__ __forceinline__ float zoom(const Tables& tb, const FlatArgs& fp,
 // K1 (B = 1) and K2: block `blockIdx.x` covers points
 // [blk * PPB, blk * PPB + PPB) of scenario b, b = blockIdx.x / bps, LANES
 // consecutive threads per point: 1, or 2 * ZK (both zooms side by side).
-template <int KIND, int LANES>
+// PM is the pose map (FlatArgs or PlanarArgs, pose_chain.cuh).
+template <int KIND, int LANES, class PM>
 __global__ void __launch_bounds__(BLOCK)
 sweep_warm_kernel(const float* __restrict__ pts, const float* __restrict__ t_warm,
                   const float* __restrict__ pose, const float* __restrict__ starts,
@@ -456,7 +460,7 @@ sweep_warm_kernel(const float* __restrict__ pts, const float* __restrict__ t_war
                   float* __restrict__ t_star, float* __restrict__ d_star,
                   float* __restrict__ grad, int P, int N, int coarse_n,
                   int rounds, float warm_window, int bps, ShapeSpec sp,
-                  FlatArgs fp) {
+                  PM fp) {
     static_assert(LANES == 1 || LANES == 2 * ZK, "1 or 16 lanes a point");
     constexpr int PPB = BLOCK / LANES;
     extern __shared__ float4 smem4[];
@@ -524,13 +528,13 @@ sweep_warm_kernel(const float* __restrict__ pts, const float* __restrict__ t_war
 
 // K4: the plateau zoom alone, from per-point (t0, w0); the candidates are
 // clipped to [0, total], t0 itself is not (pallas_zoom._make_kernel).
-template <int KIND, int LANES>
+template <int KIND, int LANES, class PM>
 __global__ void __launch_bounds__(BLOCK)
 zoom_refine_kernel(const float* __restrict__ pts, const float* __restrict__ t0,
                    const float* __restrict__ w0, const float* __restrict__ starts,
                    const float* __restrict__ durs, const float* __restrict__ coeffs,
                    float* __restrict__ t_star, int P, int N, int rounds,
-                   ShapeSpec sp, FlatArgs fp) {
+                   ShapeSpec sp, PM fp) {
     extern __shared__ float4 smem4[];
     const Tables tb = load_tables(reinterpret_cast<float*>(smem4), starts,
                                   durs, coeffs, N);
@@ -557,39 +561,36 @@ static inline size_t sweep_smem(int N, int coarse_n) {
     return ((size_t)coarse_n * 12 + table_floats(N)) * sizeof(float);
 }
 
-template <int LANES>
+template <int LANES, class PM>
 static int launch_sweep(const float* pts, const float* t_warm,
                         const float* pose, const float* starts,
                         const float* durs, const float* coeffs, float* t_star,
                         float* d_star, float* grad, int B, int P, int N,
                         int coarse_n, int rounds, float warm_window,
-                        ShapeSpec sp, FlatArgs fp, cudaStream_t stream) {
+                        ShapeSpec sp, PM fp, cudaStream_t stream) {
     static size_t granted = 0;
     const int bps = (P + BLOCK / LANES - 1) / (BLOCK / LANES);
     const long long blocks = (long long)bps * B;
     const size_t smem = sweep_smem(N, coarse_n);
     if (blocks < 1 || blocks > 2147483647LL || smem > SMEM_MAX)
         return (int)cudaErrorInvalidValue;
-    const cudaError_t e = allow_smem(sweep_warm_kernel<SDF_KIND, LANES>, smem,
-                                     granted);
+    const cudaError_t e = allow_smem(sweep_warm_kernel<SDF_KIND, LANES, PM>,
+                                     smem, granted);
     if (e != cudaSuccess) return (int)e;
-    sweep_warm_kernel<SDF_KIND, LANES><<<(unsigned)blocks, BLOCK, smem, stream>>>(
+    sweep_warm_kernel<SDF_KIND, LANES, PM><<<(unsigned)blocks, BLOCK, smem,
+                                            stream>>>(
         pts, t_warm, pose, starts, durs, coeffs, t_star, d_star, grad, P, N,
         coarse_n, rounds, warm_window, bps, sp, fp);
     return (int)cudaGetLastError();
 }
 
-// K1 is the call with B = 1; K2 any B.  Arrays carry a leading B:
-// pts (B, P, 3), t_warm (B, P), pose (B, coarse_n, 12) (16-byte aligned),
-// starts/durs (B, N), coeffs (B, N, 6, 3) -> t_star, d_star (B, P),
-// grad (B, P, 3).  lanes: threads per point, 1 or 16 (fused_zoom._lanes_for).
-extern "C" int isdf_sweep_warm_fused(
-    const float* pts, const float* t_warm, const float* pose,
-    const float* starts, const float* durs, const float* coeffs,
-    float* t_star, float* d_star, float* grad, int B, int P, int N,
-    int coarse_n, int rounds, float warm_window, int lanes, ShapeSpec sp,
-    FlatArgs fp, void* stream) {
-    if (sp.kind != SDF_KIND) return (int)cudaErrorInvalidValue;
+template <class PM>
+static int sweep_lanes(const float* pts, const float* t_warm,
+                       const float* pose, const float* starts,
+                       const float* durs, const float* coeffs, float* t_star,
+                       float* d_star, float* grad, int B, int P, int N,
+                       int coarse_n, int rounds, float warm_window, int lanes,
+                       ShapeSpec sp, PM fp, void* stream) {
     if (lanes == 1)
         return launch_sweep<1>(pts, t_warm, pose, starts, durs, coeffs, t_star,
                                d_star, grad, B, P, N, coarse_n, rounds,
@@ -602,34 +603,72 @@ extern "C" int isdf_sweep_warm_fused(
     return (int)cudaErrorInvalidValue;
 }
 
-template <int LANES>
+// K1 is the call with B = 1; K2 any B.  Arrays carry a leading B:
+// pts (B, P, 3), t_warm (B, P), pose (B, coarse_n, 12) (16-byte aligned),
+// starts/durs (B, N), coeffs (B, N, 6, 3) -> t_star, d_star (B, P),
+// grad (B, P, 3).  lanes: threads per point, 1 or 16 (fused_zoom._lanes_for).
+// pa: the pose map, tilt or planar.
+extern "C" int isdf_sweep_warm_fused(
+    const float* pts, const float* t_warm, const float* pose,
+    const float* starts, const float* durs, const float* coeffs,
+    float* t_star, float* d_star, float* grad, int B, int P, int N,
+    int coarse_n, int rounds, float warm_window, int lanes, ShapeSpec sp,
+    PoseArgs pa, void* stream) {
+    if (sp.kind != SDF_KIND) return (int)cudaErrorInvalidValue;
+    if (pa.planar == 1)
+        return sweep_lanes(pts, t_warm, pose, starts, durs, coeffs, t_star,
+                           d_star, grad, B, P, N, coarse_n, rounds,
+                           warm_window, lanes, sp, planar_args(pa), stream);
+    if (pa.planar == 0)
+        return sweep_lanes(pts, t_warm, pose, starts, durs, coeffs, t_star,
+                           d_star, grad, B, P, N, coarse_n, rounds,
+                           warm_window, lanes, sp, flat_args(pa), stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int LANES, class PM>
 static int launch_zoom(const float* pts, const float* t0, const float* w0,
                        const float* starts, const float* durs,
                        const float* coeffs, float* t_star, int P, int N,
-                       int rounds, ShapeSpec sp, FlatArgs fp,
+                       int rounds, ShapeSpec sp, PM fp,
                        cudaStream_t stream) {
     static size_t granted = 0;
     const int blocks = (P + BLOCK / LANES - 1) / (BLOCK / LANES);
     const size_t smem = table_floats(N) * sizeof(float);
     if (blocks < 1 || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-    const cudaError_t e = allow_smem(zoom_refine_kernel<SDF_KIND, LANES>, smem,
-                                     granted);
+    const cudaError_t e = allow_smem(zoom_refine_kernel<SDF_KIND, LANES, PM>,
+                                     smem, granted);
     if (e != cudaSuccess) return (int)e;
-    zoom_refine_kernel<SDF_KIND, LANES><<<blocks, BLOCK, smem, stream>>>(
+    zoom_refine_kernel<SDF_KIND, LANES, PM><<<blocks, BLOCK, smem, stream>>>(
         pts, t0, w0, starts, durs, coeffs, t_star, P, N, rounds, sp, fp);
     return (int)cudaGetLastError();
 }
 
-extern "C" int isdf_zoom_refine(
-    const float* pts, const float* t0, const float* w0, const float* starts,
-    const float* durs, const float* coeffs, float* t_star, int P, int N,
-    int rounds, int lanes, ShapeSpec sp, FlatArgs fp, void* stream) {
-    if (sp.kind != SDF_KIND) return (int)cudaErrorInvalidValue;
+template <class PM>
+static int zoom_lanes(const float* pts, const float* t0, const float* w0,
+                      const float* starts, const float* durs,
+                      const float* coeffs, float* t_star, int P, int N,
+                      int rounds, int lanes, ShapeSpec sp, PM fp,
+                      void* stream) {
     if (lanes == 1)
         return launch_zoom<1>(pts, t0, w0, starts, durs, coeffs, t_star, P, N,
                               rounds, sp, fp, (cudaStream_t)stream);
     if (lanes == ZK)
         return launch_zoom<ZK>(pts, t0, w0, starts, durs, coeffs, t_star, P,
                                N, rounds, sp, fp, (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int isdf_zoom_refine(
+    const float* pts, const float* t0, const float* w0, const float* starts,
+    const float* durs, const float* coeffs, float* t_star, int P, int N,
+    int rounds, int lanes, ShapeSpec sp, PoseArgs pa, void* stream) {
+    if (sp.kind != SDF_KIND) return (int)cudaErrorInvalidValue;
+    if (pa.planar == 1)
+        return zoom_lanes(pts, t0, w0, starts, durs, coeffs, t_star, P, N,
+                          rounds, lanes, sp, planar_args(pa), stream);
+    if (pa.planar == 0)
+        return zoom_lanes(pts, t0, w0, starts, durs, coeffs, t_star, P, N,
+                          rounds, lanes, sp, flat_args(pa), stream);
     return (int)cudaErrorInvalidValue;
 }

@@ -87,7 +87,11 @@ def integral_penalty(traj: PolyTraj, params, w: BackendWeights, res: int):
 
     vel, acc, jer = eval_d(1), eval_d(2), eval_d(3)
     quat, omg = fl.rates_of(eval_d(0), vel, acc, jer, params)
-    viola_vel = torch.sum(vel * vel, dim=-1) - w.vmax ** 2
+    if isinstance(params, fl.PlanarPose):
+        # planar: the speed is (vx, vy)'s; the third axis is ψ̇
+        viola_vel = torch.sum(vel[..., :2] ** 2, dim=-1) - w.vmax ** 2
+    else:
+        viola_vel = torch.sum(vel * vel, dim=-1) - w.vmax ** 2
     viola_omg = torch.sum(omg * omg, dim=-1) - w.omgmax ** 2
     cos_theta = 1.0 - 2.0 * (quat[..., 1] ** 2 + quat[..., 2] ** 2)
     # the clip margin must be representable in float32 (1−1e-9 rounds to 1,
@@ -157,11 +161,12 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
 
 
 def optimize(shape, conf, head, tail, q0, T0, points, mask, t_warm0=None,
-             max_iters: Optional[int] = None, rot_refs=None, device=None,
-             dtype=torch.float32):
+             max_iters: Optional[int] = None, params=None, rot_refs=None,
+             device=None, dtype=torch.float32):
     """Full back-end L-BFGS solve → (PolyTraj, LBFGSResult).  Inputs may be
     arrays or tensors; they are placed on ``device`` (default: the CUDA
-    card) in ``dtype``."""
+    card) in ``dtype``.  ``params`` is the pose map (default: the config's
+    FlatParams; PlanarPose for the planar planner)."""
     dev = resolve_device(device)
 
     def on(a, dt=dtype):
@@ -170,7 +175,8 @@ def optimize(shape, conf, head, tail, q0, T0, points, mask, t_warm0=None,
     head, tail, q0, T0, points = (on(a) for a in (head, tail, q0, T0, points))
     mask = on(mask, torch.bool)
     N = T0.shape[0]
-    params = fl.FlatParams.from_config(conf)
+    if params is None:
+        params = fl.FlatParams.from_config(conf)
     w = BackendWeights.from_config(conf)
     x0 = pack(timemap.T_to_tau(T0), q0)
     t_warm0 = torch.zeros(points.shape[0], dtype=dtype, device=dev) \

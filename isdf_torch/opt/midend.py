@@ -53,18 +53,20 @@ def make_cost_fn(head, tail, N: int, ref_points, rho_mid: float,
 
 
 def get_ori_traj(conf, head, tail, waypoints, T0, rot_refs=None,
-                 max_iters: int = 200):
+                 max_iters: int = 200, params=None):
     """(ref OriTraj::getOriTraj) → (PolyTraj, opt_x warm start, result).
 
     Tensors in, on their device and dtype; rot_refs: optional (N−1, 3, 3)
-    per-waypoint attitude references from the A* SE(3) search."""
+    per-waypoint attitude references from the A* SE(3) search; params: the
+    pose map of the attitude term (default: the config's FlatParams)."""
     N = T0.shape[0]
     q0 = waypoints
     x0 = pack(timemap.T_to_tau(T0), q0)
-    att = params = None
+    att = None
     if rot_refs is not None and conf.weight_ar > 0.0:
         att = pad_attitude_refs(rot_refs, x0.dtype, x0.device)
-        params = fl.FlatParams.from_config(conf)
+        if params is None:
+            params = fl.FlatParams.from_config(conf)
     cost_and_grad, _ = make_cost_fn(
         head, tail, N, q0, conf.rho_mid_end, conf.weight_pr,
         conf.integralIntervs, att=att, weight_ar=conf.weight_ar,

@@ -112,26 +112,33 @@ class PlannerManager:
                                device=self.device)
 
     # -- map arrival (ref mapRcvCallBack plan_manager.cpp:397-411) -----------
-    def set_map_points(self, points: np.ndarray):
+    def set_map_points(self, points: np.ndarray,
+                       use_pose_kernels: bool = True):
         t0 = time.perf_counter()
         gm = GridMap.from_points(
             points, self.conf.mapBound, self.conf.occupancy_resolution,
             self.conf.sta_threshold, device=self.device)
-        self.set_map(gm)
+        self.set_map(gm, use_pose_kernels=use_pose_kernels)
         self.metrics.log("map_build_s", time.perf_counter() - t0)
 
-    def set_map(self, gm: GridMap):
+    def set_map(self, gm: GridMap, use_pose_kernels: bool = True):
+        """A new map.  With ``use_pose_kernels`` the pose-feasibility
+        volume is rebuilt for it (the pose kernels themselves depend on the
+        shape alone and are built once); without, the front end is plain
+        occupancy A* and no attitude references exist."""
         self.gridmap = gm
         self._host_map = gm.cpu()       # for the host-side obstacle gathers
-        t0 = time.perf_counter()
-        if self.pose_kernels is None:
-            # shape-only precompute, reused across map updates
-            self.pose_kernels = build_pose_kernels(
-                self.shape, self.conf, device=self.device)
-        feas = pose_feasibility(gm.occ.to(self.device),
-                                self.pose_kernels.kernels)
-        self.feasibility = feas.cpu().numpy()
-        self.metrics.log("kernel_build_s", time.perf_counter() - t0)
+        if use_pose_kernels:
+            t0 = time.perf_counter()
+            if self.pose_kernels is None:
+                # shape-only precompute, reused across map updates (a
+                # closed loop rebuilds only the feasibility convolution)
+                self.pose_kernels = build_pose_kernels(
+                    self.shape, self.conf, device=self.device)
+            feas = pose_feasibility(gm.occ.to(self.device),
+                                    self.pose_kernels.kernels)
+            self.feasibility = feas.cpu().numpy()
+            self.metrics.log("kernel_build_s", time.perf_counter() - t0)
 
     def snap_feasible(self, p, max_radius_vox: int = 6) -> np.ndarray:
         """Snap a point to the nearest any-pose-feasible free voxel center
@@ -139,8 +146,11 @@ class PlannerManager:
         by ESDF clearance."""
         gm = self.gridmap
         occ = gm.occ.cpu().numpy()
-        R, P = self.feasibility.shape[:2]
-        free = ~occ & self.feasibility.reshape(R * P, *occ.shape).any(axis=0)
+        free = ~occ
+        if self.feasibility is not None:
+            R, P = self.feasibility.shape[:2]
+            free = free & self.feasibility.reshape(R * P, *occ.shape).any(
+                axis=0)
         p = np.asarray(p, dtype=np.float64)
         idx = gm.world_to_index(
             torch.as_tensor(p, device=gm.origin.device)).cpu().numpy()
@@ -170,10 +180,13 @@ class PlannerManager:
             torch.as_tensor(best, device=gm.origin.device)).cpu().numpy()
 
     # -- full plan (ref targetRcvCallBack) -----------------------------------
-    def plan(self, start, goal, max_iters: Optional[int] = None
-             ) -> PlanResult:
-        """Plan from rest at ``start`` to rest at ``goal``; ``max_iters``
-        caps each back-end solve (default: ``conf.max_iterations``)."""
+    def plan(self, start, goal, max_iters: Optional[int] = None,
+             start_vel=None, start_acc=None) -> PlanResult:
+        """Plan from ``start`` to rest at ``goal``; ``max_iters`` caps each
+        back-end solve (default: ``conf.max_iterations``).  start_vel and
+        start_acc are the head state's derivative rows (default: rest): a
+        closed loop replans from the commanded state so the new trajectory
+        continues the flight smoothly."""
         if self.gridmap is None:
             raise RuntimeError("call set_map first")
         conf = self.conf
@@ -186,7 +199,8 @@ class PlannerManager:
         t0 = time.perf_counter()
         pk = self.pose_kernels
         fr = astar_se3(self.gridmap, start, goal, self.feasibility,
-                       pk.rolls.cpu().numpy(), pk.pitches.cpu().numpy())
+                       None if pk is None else pk.rolls.cpu().numpy(),
+                       None if pk is None else pk.pitches.cpu().numpy())
         m["front_end_s"] = time.perf_counter() - t0
         m["expanded"] = fr.expanded
         if not fr.success:
@@ -206,8 +220,9 @@ class PlannerManager:
         N = len(Q) + 1
         m["n_pieces"] = N
 
+        # attitude references need the pose kernels' (roll, pitch) poses
         rot_refs = None
-        if (conf.weight_ar > 0.0
+        if (pk is not None and conf.weight_ar > 0.0
                 and (np.abs(wp_rolls).max(initial=0.0) > 1e-9
                      or np.abs(wp_pitches).max(initial=0.0) > 1e-9)):
             rot_refs = self._t(_rp_to_rot(wp_rolls, wp_pitches))
@@ -224,6 +239,10 @@ class PlannerManager:
 
         head_np = np.zeros((3, 3))
         head_np[:, 0] = start
+        if start_vel is not None:
+            head_np[:, 1] = start_vel
+        if start_acc is not None:
+            head_np[:, 2] = start_acc
         tail_np = np.zeros((3, 3))
         tail_np[:, 0] = goal
         head, tail = self._t(head_np), self._t(tail_np)

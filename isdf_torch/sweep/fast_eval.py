@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from isdf_torch.core import flatness as fl
 from isdf_torch.core.poly import take_pieces
 from isdf_torch.core.smoothing import clip
 
@@ -85,7 +86,15 @@ def pvaj_components(traj, t: torch.Tensor, n_orders: int = 3):
 
 def pose_components(pos, vel, acc, params):
     """Component-form pose map: 3-tuples → (pos3 3-tuple, R 9-tuple, row
-    major).  Quadrotor tilt from the drag-augmented specific force."""
+    major).  FlatParams: the quadrotor tilt from the drag-augmented specific
+    force; PlanarPose: x = (p₀, p₁, z_ref), R = Rz(p₂)."""
+    if isinstance(params, fl.PlanarPose):
+        px, py, pz = pos
+        c, s = torch.cos(pz), torch.sin(pz)
+        zeros = torch.zeros_like(c)
+        ones = torch.ones_like(c)
+        zref = torch.full_like(c, params.z_ref)
+        return (px, py, zref), (c, -s, zeros, s, c, zeros, zeros, zeros, ones)
     p = params
     vx, vy, vz = vel
     ax, ay, az = acc

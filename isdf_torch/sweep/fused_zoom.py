@@ -26,6 +26,12 @@ idle with one thread a point, the large batched sweep fills it.  Every lane
 count is an instantiation of the one kernel and gives bitwise the same
 results.
 
+Every kernel takes either pose map of core/flatness, as the TPU kernels
+take theirs through ``params``: the quadrotor tilt (``FlatParams``) or SE(2)
+(``PlanarPose``, the planar planner's: the trajectory's third axis is the
+yaw).  Both are instantiated in every library; ``pose_args_c`` tells the C
+entry point which one to launch.
+
 Only t* leaves the sweep kernels as a result the optimizer uses; callers
 re-evaluate SDF(p, t*) differentiably outside (envelope theorem).
 """
@@ -45,6 +51,7 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from isdf_torch.core import flatness as fl
 from isdf_torch.core.smoothing import clip
 from isdf_torch.shapes.spec import KINDS, MAX_PARAMS
 from isdf_torch.sweep.fast_eval import (
@@ -84,9 +91,12 @@ class _ShapeSpecC(ctypes.Structure):
                 ("R", ctypes.c_float * 9), ("t", ctypes.c_float * 3)]
 
 
-class _FlatArgsC(ctypes.Structure):
-    _fields_ = [("grav", ctypes.c_float), ("kd", ctypes.c_float),
-                ("cp", ctypes.c_float), ("veps", ctypes.c_float)]
+class _PoseArgsC(ctypes.Structure):
+    """The pose map as the C entry points take it (pose_chain.cuh
+    PoseArgs): ``planar`` 0 with the tilt constants, or 1 with z_ref."""
+    _fields_ = [("planar", ctypes.c_int), ("grav", ctypes.c_float),
+                ("kd", ctypes.c_float), ("cp", ctypes.c_float),
+                ("veps", ctypes.c_float), ("z_ref", ctypes.c_float)]
 
 
 def _lanes_for(B: int, P: int) -> int:
@@ -134,10 +144,32 @@ def _report_path(lib: Path) -> Path:
     return lib.with_suffix(".ptxas.txt")
 
 
+def _template_args(mangled: str):
+    """The template arguments of a mangled kernel name's ``I…E`` list:
+    integers (``Li16E``) and class names (``8FlatArgs``)."""
+    args, i = [], 1
+    if not mangled.startswith("I"):
+        return args
+    while i < len(mangled) and mangled[i] != "E":
+        m = re.match(r"Li(\d+)E", mangled[i:])
+        if m:
+            args.append(m.group(1))
+            i += m.end()
+            continue
+        m = re.match(r"(\d+)", mangled[i:])
+        if not m:
+            break
+        n = int(m.group(1))
+        args.append(mangled[i + m.end():i + m.end() + n])
+        i += m.end() + n
+    return args
+
+
 def ptxas_report(lib: Path):
     """What ptxas said of each kernel of a built library → [(kernel,
     registers, spill-store bytes, spill-load bytes, stack bytes)], the
-    kernel as ``name<template arguments>``."""
+    kernel as ``name<template arguments>`` (the pose map by its struct,
+    ``FlatArgs`` or ``PlanarArgs``)."""
     out, name, frame = [], None, None
     path = _report_path(lib)
     for line in path.read_text().splitlines() if path.exists() else ():
@@ -145,7 +177,7 @@ def ptxas_report(lib: Path):
         if m:
             mangled = m.group(2)
             n = int(m.group(1)[2:]) if m.group(1) else len(mangled)
-            args = re.findall(r"Li(\d+)E", mangled[n:])
+            args = _template_args(mangled[n:])
             name = mangled[:n] + (f"<{','.join(args)}>" if args else "")
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -224,11 +256,11 @@ def _load(kind: int) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, _ShapeSpecC,
-                          _FlatArgsC, ctypes.c_void_p])
+                          _PoseArgsC, ctypes.c_void_p])
         fn = lib.isdf_zoom_refine
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [_ShapeSpecC, _FlatArgsC, ctypes.c_void_p])
+                       + [_ShapeSpecC, _PoseArgsC, ctypes.c_void_p])
         _libs[kind] = lib
     return lib
 
@@ -246,14 +278,29 @@ def _spec_c(spec) -> _ShapeSpecC:
     return s
 
 
-def _flat_c(params) -> _FlatArgsC:
-    return _FlatArgsC(params.grav, params.dh / params.mass, params.cp,
-                      params.veps)
+def check_pose_map(params) -> None:
+    """The kernels take the two pose maps of core/flatness and no other."""
+    if not isinstance(params, fl.POSE_MAPS):
+        raise TypeError(f"pose map {type(params).__name__}: the sweep "
+                        "kernels take FlatParams or PlanarPose")
 
 
-def _check_sweep_args(pts, t_warm, pose_table, starts, durs, coeffs,
+def pose_args_c(params) -> _PoseArgsC:
+    """The pose map's C struct: PlanarPose → (1, z_ref), FlatParams → (0,
+    g, dh/m, cp, veps)."""
+    check_pose_map(params)
+    if isinstance(params, fl.PlanarPose):
+        return _PoseArgsC(planar=1, z_ref=params.z_ref)
+    return _PoseArgsC(planar=0, grav=params.grav,
+                      kd=params.dh / params.mass, cp=params.cp,
+                      veps=params.veps)
+
+
+def _check_sweep_args(params, pts, t_warm, pose_table, starts, durs, coeffs,
                       coarse_n, k):
-    """Shapes of the sweep's arguments, with any leading scenario axis."""
+    """The pose map, and the shapes of the sweep's arguments with any
+    leading scenario axis."""
+    check_pose_map(params)
     lead = tuple(pts.shape[:-2])
     P = pts.shape[-2]
     N = durs.shape[-1]
@@ -340,7 +387,7 @@ def _launch_sweep(shape, params, pts, t_warm, pose_table, starts, durs,
         starts.data_ptr(), durs.data_ptr(), coeffs.data_ptr(),
         t_star.data_ptr(), d_star.data_ptr(), grad.data_ptr(),
         B, P, N, coarse_n, rounds, float(warm_window), lanes,
-        _spec_c(shape.spec), _flat_c(params), _stream(pts.device))
+        _spec_c(shape.spec), pose_args_c(params), _stream(pts.device))
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
     return t_star, d_star, grad, True
@@ -358,8 +405,8 @@ def sweep_warm_fused(shape, params, pts, t_warm, pose_table, starts, durs,
     global LAUNCHES
     if pts.dim() != 2:
         raise ValueError(f"pts {tuple(pts.shape)}: expected (P, 3)")
-    P, N = _check_sweep_args(pts, t_warm, pose_table, starts, durs, coeffs,
-                             coarse_n, k)
+    P, N = _check_sweep_args(params, pts, t_warm, pose_table, starts, durs,
+                             coeffs, coarse_n, k)
     if not pts.is_cuda:
         return sweep_warm_fused_ref(shape, params, pts, t_warm, pose_table,
                                     starts, durs, coeffs, coarse_n, rounds, k,
@@ -386,8 +433,8 @@ def sweep_warm_fused_batched(shape, params, pts, t_warm, pose_table, starts,
     global LAUNCHES_BATCHED
     if pts.dim() != 3:
         raise ValueError(f"pts {tuple(pts.shape)}: expected (B, P, 3)")
-    P, N = _check_sweep_args(pts, t_warm, pose_table, starts, durs, coeffs,
-                             coarse_n, k)
+    P, N = _check_sweep_args(params, pts, t_warm, pose_table, starts, durs,
+                             coeffs, coarse_n, k)
     if not pts.is_cuda:
         return sweep_warm_fused_batched_ref(
             shape, params, pts, t_warm, pose_table, starts, durs, coeffs,
@@ -407,6 +454,7 @@ def zoom_refine(shape, params, pts, t0, w0, starts, durs, coeffs,
     2/(k−1).  CUDA tensors launch the kernel; CPU tensors run
     :func:`zoom_refine_ref`."""
     global LAUNCHES_ZOOM
+    check_pose_map(params)
     P, N = pts.shape[0], durs.shape[0]
     if k != 8:
         raise ValueError("the zoom kernel zooms with k = 8 candidates")
@@ -429,7 +477,7 @@ def zoom_refine(shape, params, pts, t0, w0, starts, durs, coeffs,
         pts.data_ptr(), t0.data_ptr(), w0.data_ptr(), starts.data_ptr(),
         durs.data_ptr(), coeffs.data_ptr(), t_star.data_ptr(), P, N, rounds,
         ZOOM_LANES if _lanes_for(1, P) > 1 else 1, _spec_c(shape.spec),
-        _flat_c(params), _stream(pts.device))
+        pose_args_c(params), _stream(pts.device))
     if err != 0:
         raise RuntimeError(f"zoom kernel launch failed: CUDA error {err}")
     LAUNCHES_ZOOM += 1

@@ -154,14 +154,16 @@ def _load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 2
-                       + [_GridFieldC, _GridFieldC, fused_zoom._FlatArgsC,
+                       + [_GridFieldC, _GridFieldC, fused_zoom._PoseArgsC,
                           ctypes.c_void_p])
         _lib = lib
     return _lib
 
 
-def _check_args(pts, t_warm, starts, durs, coeffs, coarse_n):
-    """Shapes of the sweep's arguments, with any leading scenario axis."""
+def _check_args(params, pts, t_warm, starts, durs, coeffs, coarse_n):
+    """The pose map, and the shapes of the sweep's arguments with any
+    leading scenario axis."""
+    fused_zoom.check_pose_map(params)
     lead = tuple(pts.shape[:-2])
     P = pts.shape[-2]
     N = durs.shape[-1]
@@ -208,7 +210,7 @@ def _launch(grid: GridField, params, pts, t_warm, starts, durs, coeffs, B, P,
         d_star.data_ptr(), grad.data_ptr(), B, P, N, coarse_n, rounds,
         float(warm_window), _w_seed_a(warm_window),
         _field_c(grid.field, grid.geo[:5]),
-        _field_c(grid.pooled, grid.geo[5:]), fused_zoom._flat_c(params),
+        _field_c(grid.pooled, grid.geo[5:]), fused_zoom.pose_args_c(params),
         fused_zoom._stream(pts.device))
     if err != 0:
         raise RuntimeError(
@@ -228,7 +230,8 @@ def grid_sweep_warm_fused(grid: GridField, params, pts, t_warm, starts, durs,
     global LAUNCHES_GRID
     if pts.dim() != 2:
         raise ValueError(f"pts {tuple(pts.shape)}: expected (P, 3)")
-    P, N = _check_args(pts, t_warm, starts, durs, coeffs, coarse_n)
+    P, N = _check_args(params, pts, t_warm, starts, durs, coeffs,
+                       coarse_n)
     if not pts.is_cuda:
         return grid_sweep_warm_fused_ref(grid, params, pts, t_warm, starts,
                                          durs, coeffs, coarse_n, rounds,
@@ -250,7 +253,8 @@ def grid_sweep_warm_fused_batched(grid: GridField, params, pts, t_warm,
     global LAUNCHES_GRID
     if pts.dim() != 3:
         raise ValueError(f"pts {tuple(pts.shape)}: expected (B, P, 3)")
-    P, N = _check_args(pts, t_warm, starts, durs, coeffs, coarse_n)
+    P, N = _check_args(params, pts, t_warm, starts, durs, coeffs,
+                       coarse_n)
     if not pts.is_cuda:
         return grid_sweep_warm_fused_batched_ref(
             grid, params, pts, t_warm, starts, durs, coeffs, coarse_n, rounds,

@@ -9,6 +9,10 @@ differentiable value is then SDF(p, t*) evaluated with autograd at the
 frozen t* (envelope theorem — the reference treats t* as a constant in its
 gradient, back_end_optimizer.hpp:827).
 
+Either pose map of core/flatness reaches the kernels: FlatParams (the
+quadrotor tilt) or PlanarPose (SE(2), the planar planner's); on CUDA tensors
+both launch K1/K2/K3, on CPU tensors both run the plain versions.
+
 Mesh robots (a shape with a ``grid``, shapes/gridsdf.py) go through K3
 (sweep/grid_zoom.py), single or batched, at every field size: the TPU's
 pooled branch for fields beyond its VMEM budget has no counterpart here.
@@ -31,7 +35,9 @@ from isdf_torch.sweep.fast_eval import (
 
 def traj_states(traj, params, ts):
     """Poses (x, R) at times ts (T,) → ((T, 3), (T, 3, 3)); for a batched
-    traj, ts (B, T) → ((B, T, 3), (B, T, 3, 3))."""
+    traj, ts (B, T) → ((B, T, 3), (B, T, 3, 3)).  ``params`` selects the
+    pose map: FlatParams → quadrotor tilt, PlanarPose → SE(2), whose x
+    column 2 is z_ref (the trajectory's third axis is the yaw)."""
     pos, vel, acc, jer = traj.pvaj(ts)
     return fl.pose_of(pos, vel, acc, jer, params)
 

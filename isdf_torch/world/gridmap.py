@@ -57,6 +57,46 @@ class GridMap:
         """Voxel center (ref GridMap3D.h getGridCubeCenter)."""
         return self.origin + (idx.to(self.origin.dtype) + 0.5) * self.resolution
 
+    def is_valid_index(self, idx: torch.Tensor) -> torch.Tensor:
+        size = torch.as_tensor(self.occ.shape, device=idx.device)
+        return torch.all((idx >= 0) & (idx < size), dim=-1)
+
+    def is_occupied_index(self, idx: torch.Tensor) -> torch.Tensor:
+        """Occupancy at voxel indices (..., 3); outside the grid is free."""
+        idx = idx.to(self.occ.device)
+        hi = torch.as_tensor(self.occ.shape, device=idx.device) - 1
+        idc = torch.minimum(torch.clamp(idx, min=0), hi)
+        inside = self.is_valid_index(idx)
+        return inside & self.occ[idc[..., 0], idc[..., 1], idc[..., 2]]
+
+    def is_occupied(self, p: torch.Tensor) -> torch.Tensor:
+        return self.is_occupied_index(self.world_to_index(p))
+
+    def occupied_centers(self) -> np.ndarray:
+        """World coordinates of every occupied voxel's center (host)."""
+        idx = np.argwhere(self.occ.cpu().numpy())
+        return self.origin.cpu().numpy() + (idx + 0.5) * self.resolution
+
+    def inflated(self, radius_vox: int) -> "GridMap":
+        """Occupancy dilated by a box of ±radius_vox voxels (ref
+        PCSmap_manager's bit-kernel inflation), on the map's device."""
+        k = 2 * radius_vox + 1
+        occ = self.occ.to(torch.float32)[None, None]
+        out = torch.nn.functional.max_pool3d(occ, k, stride=1,
+                                             padding=radius_vox)
+        return replace(self, occ=out[0, 0] > 0.5)
+
+    def sdf_value(self, p: torch.Tensor) -> torch.Tensor:
+        """Trilinear ESDF interpolation at world points (..., 3), clamped at
+        the border (ref GridMap3D.h:114-150); differentiable in p."""
+        return _trilinear(self.esdf, self.origin, self.resolution, p)
+
+    def sdf_grad(self, p: torch.Tensor) -> torch.Tensor:
+        with torch.enable_grad():
+            q = p.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self.sdf_value(q).sum(), q)
+        return g
+
     def cpu(self) -> "GridMap":
         """The same map on the host (the numpy-only obstacle gather reads it
         through ``np.asarray``)."""
@@ -89,3 +129,33 @@ def _edt2(occ: torch.Tensor) -> torch.Tensor:
     # axes are now (y, z, x) → restore (x, y, z)
     f = f.movedim(2, 0).movedim(2, 1)
     return torch.clamp(f, max=big)
+
+
+def _trilinear(field: torch.Tensor, origin: torch.Tensor, resolution: float,
+               p: torch.Tensor) -> torch.Tensor:
+    """Trilinear interpolation of a scalar voxel field at world points
+    (..., 3), clamped at the border; differentiable in p."""
+    g = (p - origin.to(p.dtype)) / resolution - 0.5
+    size = torch.as_tensor(field.shape, device=p.device)
+    g = torch.minimum(torch.clamp(g, min=0.0),
+                      (size - 1).to(g.dtype) - 1e-6)
+    i0 = torch.minimum(torch.clamp(torch.floor(g).to(torch.int64), min=0),
+                       size - 2)
+    frac = g - i0.to(g.dtype)
+    f = field.to(p.dtype)
+
+    def gather(ox, oy, oz):
+        return f[i0[..., 0] + ox, i0[..., 1] + oy, i0[..., 2] + oz]
+
+    fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
+    c000, c100 = gather(0, 0, 0), gather(1, 0, 0)
+    c010, c110 = gather(0, 1, 0), gather(1, 1, 0)
+    c001, c101 = gather(0, 0, 1), gather(1, 0, 1)
+    c011, c111 = gather(0, 1, 1), gather(1, 1, 1)
+    c00 = c000 * (1 - fx) + c100 * fx
+    c10 = c010 * (1 - fx) + c110 * fx
+    c01 = c001 * (1 - fx) + c101 * fx
+    c11 = c011 * (1 - fx) + c111 * fx
+    c0 = c00 * (1 - fy) + c10 * fy
+    c1 = c01 * (1 - fy) + c11 * fy
+    return c0 * (1 - fz) + c1 * fz

@@ -672,3 +672,161 @@ def test_small_pose_table_bitwise_on_card(coarse_n):
         tr2, dr2, _ = fused_zoom.sweep_warm_fused_batched_ref(
             shape, params, *batched, **kw)
         assert _same(got[:2], (tr2, dr2))
+
+
+# ---------------------------------------------------------------------------
+# the planar (SE(2)) pose map: the third trajectory axis is the yaw
+
+PLANAR_CONF = {"Box": dict(box_x=1.4, box_y=0.2, box_z=0.2), "Ball": {}}
+
+
+def _planar_inputs(name, dev, P=2048, N=6, coarse_n=64, seed=20):
+    """A planar (x, y, ψ) trajectory through a field of obstacle points in
+    the plane z = 0, the yaw turning by ~1.5 rad, and the pose table under
+    PlanarPose."""
+    rng = np.random.default_rng(seed)
+    u = np.linspace(0, 1, N + 1)[1:-1, None]
+    q = (np.array([2.0, 2.0, 0.0]) + u * np.array([10.0, 8.0, 1.5])
+         + rng.normal(scale=[0.4, 0.4, 0.2], size=(N - 1, 3)))
+    T = torch.as_tensor(rng.uniform(1.2, 2.2, size=N), dtype=F32, device=dev)
+    head = torch.zeros(3, 3, dtype=F32, device=dev)
+    head[:, 0] = torch.tensor([2.0, 2.0, 0.0])
+    tail = torch.zeros(3, 3, dtype=F32, device=dev)
+    tail[:, 0] = torch.tensor([12.0, 10.0, 1.5])
+    traj = PolyTraj(T, minco.solve(torch.as_tensor(q, dtype=F32, device=dev),
+                                   T, head, tail))
+    shape = make_shape(name, Config(**PLANAR_CONF[name]))
+    params = fl.PlanarPose(0.0)
+    xy = (np.linspace([2.0, 2.0], [12.0, 10.0], P)
+          + rng.uniform(-2.0, 2.0, size=(P, 2)))
+    pts = torch.as_tensor(np.concatenate([xy, np.zeros((P, 1))], axis=1),
+                          dtype=F32, device=dev)
+    tw = torch.as_tensor(rng.uniform(0, float(T.sum()), size=P), dtype=F32,
+                         device=dev)
+    ts = torch.linspace(0.0, 1.0, coarse_n, dtype=F32, device=dev)
+    xs, Rs = traj_states(traj, params, ts * traj.total_duration)
+    pose = torch.cat([xs, Rs.reshape(-1, 9)], dim=1).contiguous()
+    starts = (torch.cumsum(T, 0) - T).contiguous()
+    return shape, params, (pts, tw, pose, starts, T.contiguous(),
+                           traj.coeffs.contiguous())
+
+
+def test_wrappers_reject_other_pose_maps():
+    shape, _, args = _planar_inputs("Box", "cpu", P=8)
+    with pytest.raises(TypeError, match="pose map"):
+        fused_zoom.sweep_warm_fused(shape, object(), *args)
+    with pytest.raises(TypeError, match="pose map"):
+        fused_zoom.sweep_warm_fused_batched(
+            shape, None, *(a[None] for a in args))
+    pts, tw, _, starts, durs, coeffs = args
+    with pytest.raises(TypeError, match="pose map"):
+        fused_zoom.zoom_refine(shape, "planar", pts, tw,
+                               torch.full_like(tw, 0.3), starts, durs, coeffs)
+    grid, _, gargs = _grid_inputs("cpu", P=8)
+    with pytest.raises(TypeError, match="pose map"):
+        grid_zoom.grid_sweep_warm_fused(grid, {"z_ref": 0.0}, *gargs)
+
+
+def test_pose_map_reaches_the_c_struct():
+    flat = fused_zoom.pose_args_c(fl.FlatParams(mass=0.5, dh=0.2))
+    assert flat.planar == 0
+    assert flat.kd == pytest.approx(0.4) and flat.grav == pytest.approx(9.8)
+    planar = fused_zoom.pose_args_c(fl.PlanarPose(z_ref=0.75))
+    assert planar.planar == 1 and planar.z_ref == 0.75
+
+
+def test_ptxas_report_names_the_pose_map(tmp_path):
+    """Each kernel is instantiated for both pose maps; the report tells the
+    two apart by the map's struct."""
+    lib = tmp_path / "sweep_warm_k15_0123.so"
+    (tmp_path / "sweep_warm_k15_0123.ptxas.txt").write_text(
+        PTXAS_SAMPLE.replace("ILi3ELi8EE", "ILi15ELi16E10PlanarArgsE")
+        .replace("ILi4EE", "ILi4E8FlatArgsE"))
+    assert fused_zoom.ptxas_report(lib) == [
+        ("sweep_warm_kernel<15,16,PlanarArgs>", 72, 0, 0, 0),
+        ("grid_sweep_kernel<4,FlatArgs>", 255, 8, 12, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cold", [False, True])
+@pytest.mark.parametrize("name,coarse_n", [("Box", 64), ("Ball", 48)])
+def test_planar_kernel_matches_plain_version_on_card(name, coarse_n, cold):
+    """K1 under PlanarPose (demo 8's bar, demo 7's disc robot): t* and d*
+    bitwise equal to the plain version's, the gradient in its band."""
+    dev = _cuda()
+    shape, params, (pts, tw, *rest) = _planar_inputs(name, dev,
+                                                     coarse_n=coarse_n)
+    args = (pts, torch.zeros_like(tw) if cold else tw, *rest)
+    kw = dict(coarse_n=coarse_n, rounds=8)
+    before = fused_zoom.LAUNCHES
+    tk, dk, gk = fused_zoom.sweep_warm_fused(shape, params, *args, **kw)
+    assert fused_zoom.LAUNCHES == before + 1
+    tr, dr, gr = fused_zoom.sweep_warm_fused_ref(shape, params, *args, **kw)
+    torch.cuda.synchronize()
+    assert _same((tk, dk), (tr, dr))
+    assert float((gk - gr).abs().max()) <= G_ATOL
+
+
+@pytest.mark.cuda
+def test_planar_lanes_bitwise_on_card(monkeypatch):
+    """The one- and 16-lane launches of K1 under PlanarPose agree bit for
+    bit."""
+    dev = _cuda()
+    shape, params, args = _planar_inputs("Box", dev)
+    assert fused_zoom._lanes_for(1, args[0].shape[0]) == 16
+    many = fused_zoom.sweep_warm_fused(shape, params, *args)
+    monkeypatch.setattr(fused_zoom, "_lanes_for", lambda B, P: 1)
+    one = fused_zoom.sweep_warm_fused(shape, params, *args)
+    torch.cuda.synchronize()
+    assert _same(one, many)
+
+
+@pytest.mark.cuda
+def test_planar_batched_kernel_bitwise_on_card():
+    """K2 under PlanarPose at B = 8: bitwise equal to K1 launched per
+    scenario, and to its plain version in t* and d*."""
+    dev = _cuda()
+    per = [_planar_inputs("Box", dev, P=512, seed=30 + b) for b in range(8)]
+    shape, params, _ = per[0]
+    args = tuple(torch.stack([p[2][i] for p in per]).contiguous()
+                 for i in range(6))
+    tk, dk, gk = fused_zoom.sweep_warm_fused_batched(shape, params, *args)
+    for b, (_, _, a1) in enumerate(per):
+        assert _same((tk[b], dk[b], gk[b]),
+                     fused_zoom.sweep_warm_fused(shape, params, *a1))
+    tr, dr, gr = fused_zoom.sweep_warm_fused_batched_ref(shape, params, *args)
+    torch.cuda.synchronize()
+    assert _same((tk, dk), (tr, dr))
+    assert float((gk - gr).abs().max()) <= G_ATOL
+
+
+@pytest.mark.cuda
+def test_planar_zoom_kernel_bitwise_on_card():
+    dev = _cuda()
+    shape, params, (pts, tw, _, starts, durs, coeffs) = _planar_inputs(
+        "Box", dev)
+    args = (pts, tw, torch.full_like(tw, 0.3), starts, durs, coeffs)
+    tk = fused_zoom.zoom_refine(shape, params, *args, rounds=8)
+    tr = fused_zoom.zoom_refine_ref(shape, params, *args, rounds=8)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, tr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coarse_n,cold", [(64, False), (256, True)])
+def test_planar_grid_kernel_bitwise_on_card(coarse_n, cold):
+    """K3 under PlanarPose on the torus field: t*, d* and the gradient
+    bitwise equal to the plain version's."""
+    dev = _cuda()
+    grid, _, _ = _grid_inputs(dev, P=8)
+    _, params, (pts, tw, _, starts, durs, coeffs) = _planar_inputs(
+        "Ball", dev, P=4096)
+    args = (pts, torch.zeros_like(tw) if cold else tw, starts, durs, coeffs)
+    before = grid_zoom.LAUNCHES_GRID
+    got = grid_zoom.grid_sweep_warm_fused(grid, params, *args,
+                                          coarse_n=coarse_n, rounds=8)
+    assert grid_zoom.LAUNCHES_GRID == before + 1
+    want = grid_zoom.grid_sweep_warm_fused_ref(grid, params, *args,
+                                               coarse_n=coarse_n, rounds=8)
+    torch.cuda.synchronize()
+    assert _same(got, want)
