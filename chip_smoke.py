@@ -67,9 +67,28 @@ Phases (any failure exits non-zero):
                tables) and demo 7's, K2 at B = 8 (also against K1 per
                scenario), K4 and K3 (the L field, P = 4096) along demo 8's
                trajectory, each against its plain version and timed.
-Phases 3–7 run before phase 2: a process that has run the kernel phase's
-torch.profiler traces planned and solved more slowly after them (PERF.md
-§6).  With ``--profile`` it then plans once more under torch.profiler,
+  9. lmbm    — demo 1's first back-end solve (the plan's mid-end result)
+               again under backend.optimize(method="lmbm") and "lbfgs",
+               capped at 200 iterations, each audited; K1's counter set to 0
+               just before each solve and read after its audit;
+ 10. golden  — the reference's whole-solve goldens (tests/golden/
+               reference_solve_golden.json, gap and slalom): the initial
+               cost and gradient at the reference's x0, the swept SDF on the
+               reference's optimum, 80-iteration solves (L-BFGS float32,
+               LMBM float64 held in the band; LMBM float32 printed);
+ 11. monitor — PlannerManager.plan(monitor=OptiMonitor()) on demo 1's
+               scene, equal to phase 3's plan, its breakdowns and ASCII
+               cost curve; a solve stopped through the Controller;
+ 12. non-fused — sweep_sdf_warm and sweep_sdf at coarse_n = 60 on demo 1's
+               and the mesh plan's voxels against float64 on the CPU, and a
+               hand-built shape with no device SDF on CUDA tensors: the
+               non-fused path's counter counts exactly these calls, K1's
+               and K3's none;
+ 13. run_demo — isdf_torch.demos.run_demo(7) and (8) on the default device,
+               equal to phase 6's plans.
+Phases 3–7 and 9–13 run before phase 2: a process that has run the kernel
+phase's torch.profiler traces planned and solved more slowly after them
+(PERF.md §6).  With ``--profile`` it then plans once more under torch.profiler,
 solves the B = 4096 batch once more under it and plans the mesh scene once
 more under it, and prints the device's busy share of each.  Then it prints
 the card's name and power limit, one JSON line with the kernels' numbers
@@ -81,6 +100,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -853,9 +873,10 @@ def phase_k3(dev, obj_path):
 
 def phase_plan(dev):
     """PlannerManager.plan on the demo-1 scene → (metrics, K1 launches, the
-    manager, the trajectory)."""
+    manager, the trajectory, the arguments of its first back-end solve)."""
     import torch
     from isdf_torch.config import Config
+    from isdf_torch.opt import backend
     from isdf_torch.plan import PlannerManager
     from isdf_torch.sweep import fused_zoom
     from isdf_torch.world import GridMap, maps_gen
@@ -873,10 +894,24 @@ def phase_plan(dev):
           f"pose kernels {tuple(pm.pose_kernels.kernels.shape)}, set-up "
           f"{setup_s:.2f} s; back-end max_iters cap {MAX_ITERS}", flush=True)
 
+    # the first back-end solve's arguments: the mid end's result, which
+    # phase_lmbm solves again under both methods
+    solves = []
+    optimize = backend.optimize
+
+    def recording(*a, **k):
+        solves.append((a, k))
+        return optimize(*a, **k)
+
+    backend.optimize = recording
     fused_zoom.LAUNCHES = 0
     t0 = time.perf_counter()
-    res = pm.plan(np.asarray(START), np.asarray(GOAL), max_iters=MAX_ITERS)
-    torch.cuda.synchronize()
+    try:
+        res = pm.plan(np.asarray(START), np.asarray(GOAL),
+                      max_iters=MAX_ITERS)
+        torch.cuda.synchronize()
+    finally:
+        backend.optimize = optimize
     plan_s = time.perf_counter() - t0
     launches = fused_zoom.LAUNCHES
 
@@ -908,7 +943,7 @@ def phase_plan(dev):
     print(f"plan: audit min swept SDF = {min_sdf!r}", flush=True)
     print(f"plan: K1 launches in the plan = {launches}", flush=True)
     check(launches > 0, "the plan never launched K1")
-    return m, launches, pm, traj
+    return m, launches, pm, traj, solves[0]
 
 
 def phase_refine(pm, traj) -> int:
@@ -1230,7 +1265,7 @@ def phase_mesh_plan(dev, obj_path):
           f"mesh plan: {launches} K3 launches, expected "
           f"{m['back_end_evals']} + {audits}")
     check(math.isfinite(min_sdf), "mesh plan: non-finite audit SDF")
-    return m, launches, pm
+    return m, launches, pm, traj
 
 
 def phase_mesh_batch(dev, shape):
@@ -1690,6 +1725,364 @@ def phase_planar_kernels(dev, planar, obj_path):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# the back end's other ways in: LMBM, the reference's goldens, the
+# monitored plan, the non-fused sweep and run_demo
+
+def phase_lmbm(pm, solve1):
+    """Demo 1's first back-end solve (the mid end's result, as the plan
+    handed it to backend.optimize) again under method="lmbm" and under
+    "lbfgs", both capped at MAX_ITERS, each followed by the audit of its
+    trajectory; K1's counter set to 0 just before each solve and read after
+    its audit: launches = evaluations + audit sweeps, and the audit clean
+    → {run: launches}.  (LMBM makes no serious step on this landscape: its
+    trials start at t = 1 along −ĝ and 12 halvings never come near;
+    ROADMAP §C1.  The JAX package's LMBM stalls the same way from the same
+    start: tests/lmbm_demo1_witness.py.)"""
+    import torch
+    from isdf_torch.opt import backend
+    from isdf_torch.sweep import fused_zoom
+
+    args, kw = solve1
+    out = {}
+    for method, dtype in (("lmbm", torch.float32),
+                          ("lbfgs", torch.float32)):
+        label = f"{method} {str(dtype).removeprefix('torch.')}"
+        fused_zoom.LAUNCHES = 0
+        t0 = time.perf_counter()
+        traj, res = backend.optimize(
+            *args, **dict(kw, method=method, max_iters=MAX_ITERS,
+                          monitor=None, dtype=dtype))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        solve_launches = fused_zoom.LAUNCHES
+        min_sdf = pm.audit_collision(traj.detach())
+        launches = fused_zoom.LAUNCHES
+        audits = launches - solve_launches
+        rec = dict(run=label, wall_s=wall, iters=res.n_iters,
+                   evals=res.n_evals, final_cost=float(res.f),
+                   converged=bool(res.converged), k1_launches=launches,
+                   audit_sweeps=audits, audit_min_swept_sdf=min_sdf,
+                   **(res.stats or {}))
+        print("lmbm " + json.dumps(rec), flush=True)
+        check(solve_launches == res.n_evals,
+              f"{label}: {solve_launches} K1 launches for {res.n_evals} "
+              "evaluations")
+        check(audits == 1, f"{label}: the audit swept {audits} times")
+        check(math.isfinite(float(res.f)), f"{label}: non-finite cost")
+        check(min_sdf > 0.0, f"{label}: audit min swept SDF {min_sdf!r}")
+        out[label] = launches
+    return out
+
+
+# the reference's whole-solve golden (tests/golden/
+# reference_solve_golden.json, native/parity/ref_solve.cpp): fillConfig's
+# values, as tests/test_parity_reference.py's _solve_conf has them
+GOLDEN_CONF = dict(
+    inputdata="shapes/RoundedCone.obj",
+    poly_params=(0.0, 0.0, 0.0, 120.0, 0.0, 0.0),
+    vehicleMass=0.61, gravAcc=9.8, horizDrag=0.10, vertDrag=0.10,
+    parasDrag=0.01, speedEps=1e-4, smoothingEps=1e-2, integralIntervs=64,
+    vmax=10.0, omgmax=10.0, thetamax=100.0, weight_v=1000.0,
+    weight_omg=1000.0, weight_theta=1000.0, weight_p=4000.0, rho=20.0,
+    safety_hor=0.866, mem_size=16, past=10, relCostTol=1e-16,
+    sweep_coarse_samples=128, sweep_refine_rounds=24)
+GOLDEN_ITERS = 80
+GOLDEN_F0_RTOL = 1e-4      # the initial cost (tests/test_parity_reference.py)
+GOLDEN_BAND = (0.6, 1.67)  # final cost over the reference's
+GOLDEN_SDF_TOL = 5e-3      # the swept SDF on the reference's optimum
+
+
+def phase_golden(dev):
+    """The reference's two whole-solve scenarios (gap, slalom) on the card,
+    held as tests/test_parity_reference.py holds the JAX package: the
+    initial cost at the reference's x0 (float32), the swept SDF on the
+    reference's own optimum, and 80-iteration solves, final cost within
+    GOLDEN_BAND of the reference's and collision-free: L-BFGS in float32,
+    LMBM in float64 (the golden config's dtype); LMBM in float32 is printed
+    beside them, not held → K1 launches of the solves."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.core import flatness as fl
+    from isdf_torch.core import minco, timemap
+    from isdf_torch.core.poly import PolyTraj
+    from isdf_torch.opt import backend
+    from isdf_torch.shapes import make_shape
+    from isdf_torch.sweep import fused_zoom, sweep_sdf
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "golden",
+                           "reference_solve_golden.json")) as f:
+        golden = json.load(f)
+    conf = Config(**GOLDEN_CONF)
+    shape = make_shape("RoundedCone", conf)
+    params = fl.FlatParams.from_config(conf)
+    f32 = dict(dtype=torch.float32, device=dev)
+    launches = 0
+    for name in ("gap", "slalom"):
+        g = golden[name]
+        N = int(g["n_pieces"])
+        head = torch.as_tensor(np.reshape(g["head"], (3, 3)), **f32)
+        tail = torch.as_tensor(np.reshape(g["tail"], (3, 3)), **f32)
+        tau0 = torch.as_tensor(g["tau0"], **f32)
+        q0 = torch.as_tensor(np.reshape(g["q0"], (-1, 3)), **f32)
+        pts = torch.as_tensor(np.reshape(g["points"], (-1, 3)), **f32)
+        mask = torch.ones(len(pts), dtype=torch.bool, device=dev)
+        cg = backend.make_cost_fn(
+            shape, params, backend.BackendWeights.from_config(conf), head,
+            tail, N, pts, mask, integral_res=conf.integralIntervs,
+            coarse_n=conf.sweep_coarse_samples,
+            refine_rounds=conf.sweep_refine_rounds)
+        f0, g0, _ = cg(backend.pack(tau0, q0), torch.zeros_like(pts[:, 0]))
+        f0_rel = abs(float(f0) / g["f0"] - 1.0)
+        g_ref, g_my = np.asarray(g["g0"]), g0.double().cpu().numpy()
+        cos = float(g_my @ g_ref / (np.linalg.norm(g_my)
+                                    * np.linalg.norm(g_ref)))
+
+        T_ref = torch.as_tensor(g["final_T"], **f32)
+        q_ref = torch.as_tensor(np.reshape(g["final_q"], (3, N - 1)).T,
+                                **f32)
+        ref_traj = PolyTraj(T_ref, minco.solve(q_ref, T_ref, head, tail))
+        sdf_ref_opt = sweep_sdf(shape, ref_traj, params, pts, coarse_n=256,
+                                refine_rounds=24)[0].double().cpu().numpy()
+        ref = np.asarray(g["sdf_final"])
+        near = ref < 10.0 - 1e-6            # the reference's sentinel
+        sdf_err = float(np.max(np.abs(sdf_ref_opt[near] - ref[near])
+                               / (1.0 + np.abs(ref[near]))))
+        rec = dict(scenario=name, points=len(pts), f0=float(f0),
+                   f0_ref=g["f0"], f0_rel_err=f0_rel, g0_cos=cos,
+                   ref_optimum_sdf_err=sdf_err,
+                   ref_final_cost=g["final_cost"], solves={})
+        for method, dtype, held in (("lbfgs", torch.float32, True),
+                                    ("lmbm", torch.float64, True),
+                                    ("lmbm", torch.float32, False)):
+            label = f"{method} {str(dtype).removeprefix('torch.')}"
+            fused_zoom.LAUNCHES = 0
+            t0 = time.perf_counter()
+            traj, res = backend.optimize(
+                shape, conf, head, tail, q0, timemap.tau_to_T(tau0), pts,
+                mask, max_iters=GOLDEN_ITERS, method=method, params=params,
+                device=dev, dtype=dtype)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches += fused_zoom.LAUNCHES
+            check(fused_zoom.LAUNCHES == res.n_evals,
+                  f"golden {name} {label}: {fused_zoom.LAUNCHES} K1 "
+                  f"launches for {res.n_evals} evaluations")
+            min_sdf = float(sweep_sdf(shape, traj.detach(), params,
+                                      pts.to(dtype), coarse_n=256,
+                                      refine_rounds=24)[0].min())
+            ratio = float(res.f) / g["final_cost"]
+            rec["solves"][label] = dict(
+                wall_s=wall, iters=res.n_iters, evals=res.n_evals,
+                final_cost=float(res.f), ratio=ratio, min_swept_sdf=min_sdf,
+                **(res.stats or {}))
+            if held:
+                check(GOLDEN_BAND[0] < ratio < GOLDEN_BAND[1],
+                      f"golden {name} {label}: final cost {float(res.f)!r} "
+                      f"is {ratio:.3f}× the reference's")
+                check(min_sdf > 0.0, f"golden {name} {label}: min swept "
+                      f"SDF {min_sdf!r} ≤ 0")
+        print("golden " + json.dumps(rec), flush=True)
+        check(f0_rel <= GOLDEN_F0_RTOL,
+              f"golden {name}: initial cost off by {f0_rel:.3g}")
+        check(cos > 1.0 - 1e-4, f"golden {name}: gradient cosine {cos!r}")
+        check(sdf_err <= GOLDEN_SDF_TOL,
+              f"golden {name}: swept SDF on the reference's optimum off by "
+              f"{sdf_err:.3g}")
+        check(g["min_clearance"] > 0.0, f"golden {name}: reference collides")
+    return launches
+
+
+def phase_monitor(pm, plan_m, solve1):
+    """PlannerManager.plan(monitor=OptiMonitor()) on demo 1's scene: the
+    chunked solve equals the monolithic one, so success, iterations and
+    cost equal phase_plan's plan; then one back-end solve stopped through
+    the monitor's Controller must end after its first chunk → K1 launches
+    of the monitored plan."""
+    import torch
+    from isdf_torch.opt import backend
+    from isdf_torch.sweep import fused_zoom
+    from isdf_torch.utils.monitor import OptiMonitor
+    from isdf_torch.utils.obs import Controller
+
+    mon = OptiMonitor()
+    fused_zoom.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = pm.plan(np.asarray(START), np.asarray(GOAL), max_iters=MAX_ITERS,
+                  monitor=mon)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_zoom.LAUNCHES
+    m = res.metrics
+    keys = ("back_end_iters", "back_end_evals", "final_cost")
+    diff = {k: m[k] - plan_m[k] for k in keys}
+    print(f"monitor: plan(monitor=) success={res.success} wall {wall:.2f} s, "
+          f"{len(mon.total)} breakdowns over {mon.solves} solve(s); against "
+          f"the plain plan: " + json.dumps(diff), flush=True)
+    print(mon.cost_curve_ascii(), flush=True)
+    check(res.success, "monitor: the monitored plan failed")
+    check(diff["back_end_iters"] == 0 and diff["back_end_evals"] == 0
+          and abs(diff["final_cost"]) <= 1e-5 * abs(plan_m["final_cost"]),
+          f"monitor: the monitored plan differs from the plain one: {diff}")
+    check(mon.solves == 1 + m.get("safety_replans", 0)
+          and len(mon.total) >= mon.solves,
+          f"monitor: {len(mon.total)} breakdowns over {mon.solves} solves")
+    for i, tot in enumerate(mon.total):
+        parts = mon.energy[i] + mon.time_cost[i] + mon.dyn[i] + mon.safety[i]
+        check(abs(tot - parts) <= 1e-4 * max(abs(tot), 1.0),
+              f"monitor: breakdown {i} sums to {parts!r}, total {tot!r}")
+
+    ctl = Controller()
+    ctl.stop()
+    args, kw = solve1
+    _, stopped = backend.optimize(
+        *args, **dict(kw, monitor=OptiMonitor(controller=ctl),
+                      monitor_chunk=4))
+    print(f"monitor: a solve stopped through the Controller ran "
+          f"{stopped.n_iters} iterations", flush=True)
+    check(stopped.n_iters == 4, f"monitor: the stopped solve ran "
+          f"{stopped.n_iters} iterations, not one chunk of 4")
+    return launches
+
+
+NON_FUSED_COARSE = 60
+# the swept SDF, card float32 against CPU float64, metres; t* is printed
+# (the share of points whose t* agree within 1e-3 s), not held: inside the
+# body the SDF is flat over an interval of t, and rounding moves the
+# plateau's centre
+NON_FUSED_SDF_ATOL = 1e-3
+
+
+def phase_non_fused(pm, traj, pm_mesh, traj_mesh, obj_path):
+    """sweep_sdf_warm and sweep_sdf at coarse_n = 60 (not a multiple of 8,
+    so not the kernels) on demo 1's shape and its audit voxels, and on the
+    L robot's field and the mesh plan's voxels, each held against the same
+    call in float64 on the CPU; then a hand-built analytic shape with no
+    device SDF, warm and cold at coarse_n = 64, its cold sweep held against
+    K1's on the zoo Ball.  The references run first; then the counters are
+    set to 0, the card's calls made, and the non-fused path's counter must
+    count exactly them, K1's and K3's none."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.core.poly import PolyTraj
+    from isdf_torch.shapes import Shape, make_shape, shape_from_config
+    from isdf_torch.sweep import fused_zoom, grid_zoom
+
+    sweeps = importlib.import_module("isdf_torch.sweep.sweep_sdf")
+    dev = pm.device
+    F64 = torch.float64
+    cases = []
+    for label, man, tr in (("demo 1 RoundedCone", pm, traj),
+                           ("mesh L", pm_mesh, traj_mesh)):
+        live, _, t_audit = man._audit_sdf(tr)
+        check(live is not None, f"non-fused {label}: no voxels")
+        cpu_shape = (make_shape("RoundedCone", man.conf) if man is pm else
+                     shape_from_config(Config(**DEMO6, inputdata=obj_path),
+                                       device="cpu", dtype=F64))
+        tr = tr.detach()
+        kw = dict(coarse_n=NON_FUSED_COARSE,
+                  refine_rounds=man.conf.sweep_refine_rounds)
+        cpu_tr = PolyTraj(tr.durations.double().cpu(),
+                          tr.coeffs.double().cpu())
+        pts = torch.as_tensor(live, dtype=torch.float32, device=dev)
+        tw = torch.as_tensor(t_audit, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            refs = dict(
+                warm=sweeps.sweep_sdf_warm(
+                    cpu_shape, cpu_tr, man.params, pts.double().cpu(),
+                    tw.double().cpu(), device="cpu", **kw),
+                cold=sweeps.sweep_sdf(cpu_shape, cpu_tr, man.params,
+                                      pts.double().cpu(), device="cpu", **kw))
+        cases.append((label, man, tr, pts, tw, kw, refs))
+    ball = make_shape("Ball", pm.conf)
+    bare = Shape("HandBuilt", ball.sdf, ball.bounds, sdf3=ball.sdf3)
+    pts1 = cases[0][3]
+    with torch.no_grad():
+        kern = sweeps.sweep_sdf(ball, traj.detach(), pm.params, pts1,
+                                coarse_n=64, refine_rounds=8, device=dev)
+
+    sweeps.XLA_CALLS = 0
+    fused_zoom.LAUNCHES = grid_zoom.LAUNCHES_GRID = 0
+    for label, man, tr, pts, tw, kw, refs in cases:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs = dict(
+                warm=sweeps.sweep_sdf_warm(man.shape, tr, man.params, pts,
+                                           tw, device=dev, **kw),
+                cold=sweeps.sweep_sdf(man.shape, tr, man.params, pts,
+                                      device=dev, **kw))
+        torch.cuda.synchronize()
+        rec = dict(case=label, points=len(pts),
+                   wall_s=time.perf_counter() - t0)
+        for k in outs:
+            d = (outs[k][0].double().cpu() - refs[k][0]).abs()
+            share = float(((outs[k][1].double().cpu() - refs[k][1]).abs()
+                           < 1e-3).double().mean())
+            rec[k] = dict(max_abs_sdf=float(d.max()), t_share=share)
+            check(float(d.max()) <= NON_FUSED_SDF_ATOL,
+                  f"non-fused {label} {k}: SDF off by {float(d.max()):.3g}")
+        print("non-fused " + json.dumps(rec), flush=True)
+    with torch.no_grad():
+        warm = sweeps.sweep_sdf_warm(bare, traj.detach(), pm.params, pts1,
+                                     torch.zeros_like(pts1[:, 0]),
+                                     coarse_n=64, refine_rounds=8, device=dev)
+        cold = sweeps.sweep_sdf(bare, traj.detach(), pm.params, pts1,
+                                coarse_n=64, refine_rounds=8, device=dev)
+    torch.cuda.synchronize()
+    d = float((cold[0] - kern[0]).abs().max())
+    print(f"non-fused: hand-built Ball (no device SDF) on {len(pts1)} voxels: "
+          f"warm min {float(warm[0].min())!r}, cold min "
+          f"{float(cold[0].min())!r}, max |cold - K1 on the zoo Ball| {d!r}; "
+          f"non-fused calls {sweeps.XLA_CALLS}, K1 launches "
+          f"{fused_zoom.LAUNCHES}, K3 launches {grid_zoom.LAUNCHES_GRID}",
+          flush=True)
+    check(bool(torch.isfinite(warm[0]).all() & torch.isfinite(cold[0]).all()),
+          "non-fused: the hand-built shape's sweep is not finite")
+    check(d <= NON_FUSED_SDF_ATOL,
+          "non-fused: the hand-built Ball disagrees with K1's Ball")
+    check(sweeps.XLA_CALLS == 2 * len(cases) + 2,
+          f"non-fused: {sweeps.XLA_CALLS} calls counted, "
+          f"{2 * len(cases) + 2} made")
+    check(fused_zoom.LAUNCHES == 0 and grid_zoom.LAUNCHES_GRID == 0,
+          f"non-fused: K1/K3 launched {fused_zoom.LAUNCHES}/"
+          f"{grid_zoom.LAUNCHES_GRID} times for non-fused sweeps")
+
+
+def phase_run_demo(planar):
+    """isdf_torch.demos.run_demo(7) and (8) with the default device: the
+    cost and success must match phase_planar's plan_planar runs → {demo:
+    K1 launches}."""
+    import torch
+    from isdf_torch import demos
+    from isdf_torch.sweep import fused_zoom
+
+    out = {}
+    for demo_id, label in ((7, "demo7"), (8, "demo8")):
+        fused_zoom.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, res = demos.run_demo(demo_id)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = res.metrics
+        ref = planar[label]
+        rec = dict(demo=demo_id, wall_s=wall, success=res.success,
+                   final_cost=m["final_cost"],
+                   plan_planar_cost=ref["final_cost"],
+                   back_end_evals=m["back_end_evals"],
+                   k1_launches=fused_zoom.LAUNCHES)
+        print("run_demo " + json.dumps(rec), flush=True)
+        check(res.success, f"run_demo({demo_id}) failed")
+        check(abs(m["final_cost"] - ref["final_cost"])
+              <= 1e-5 * abs(ref["final_cost"]),
+              f"run_demo({demo_id}): cost {m['final_cost']!r}, plan_planar "
+              f"{ref['final_cost']!r}")
+        check(fused_zoom.LAUNCHES == m["back_end_evals"] + 1,
+              f"run_demo({demo_id}): {fused_zoom.LAUNCHES} K1 launches")
+        out[demo_id] = fused_zoom.LAUNCHES
+    return out
+
+
 def kernel_line(name, replaces, launches, max_abs_err, rec, pose, paths,
                 source="isdf_torch/csrc/sweep_warm.cu"):
     """One kernel and pose map of the kernels line: ``launches`` the sum of
@@ -1736,14 +2129,19 @@ def main() -> int:
             for label, lib in libs.items()}), flush=True)
         obj_path = write_l_robot(workdir.name)
         # the timed paths first, the kernel phase's profiler traces after
-        _, k1_launches, pm, traj = phase_plan(dev)
+        plan_m, k1_launches, pm, traj, solve1 = phase_plan(dev)
         k4_launches = phase_refine(pm, traj)
         k2_launches, batch_case = phase_batch(dev)
-        _, k3_launches, pm_mesh = phase_mesh_plan(dev, obj_path)
+        _, k3_launches, pm_mesh, traj_mesh = phase_mesh_plan(dev, obj_path)
         phase_mesh_batch(dev, pm_mesh.shape)
         planar = phase_planar(dev)
         fly = phase_fly(dev)
         planar_paths = phase_planar_paths(dev, planar, obj_path)
+        k1_lmbm = phase_lmbm(pm, solve1)
+        k1_golden = phase_golden(dev)
+        k1_monitor = phase_monitor(pm, plan_m, solve1)
+        phase_non_fused(pm, traj, pm_mesh, traj_mesh, obj_path)
+        k1_demos = phase_run_demo(planar)
         k1_recs, slice_case = phase_kernels(dev)
         k2_recs = phase_k2(dev)
         k4_recs = phase_k4(dev, slice_case)
@@ -1774,9 +2172,14 @@ def main() -> int:
     k3_main = next(r for r in k3_recs if r["case"] == "L/slice")
     k1_planar = planar_recs["K1"][0]
     k1_paths = {"PlannerManager.plan demo 1": k1_launches,
-                "fly_closed_loop": fly["k1_launches"]}
-    k1p_paths = {f"plan_planar {k}": v["k1_launches"]
-                 for k, v in planar.items()}
+                "fly_closed_loop": fly["k1_launches"],
+                **{f"backend.optimize {k} demo 1": v
+                   for k, v in k1_lmbm.items()},
+                "backend.optimize reference goldens": k1_golden,
+                "PlannerManager.plan(monitor=) demo 1": k1_monitor}
+    k1p_paths = {**{f"plan_planar {k}": v["k1_launches"]
+                    for k, v in planar.items()},
+                 **{f"run_demo({k})": v for k, v in k1_demos.items()}}
     kernels = [
         kernel_line("sweep_warm_fused", "isdf_tpu/sweep/pallas_zoom.py:419",
                     sum(k1_paths.values()),

@@ -18,7 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
-from isdf_torch.core.so3 import quat_to_rot
+from isdf_torch.core.so3 import hat, quat_to_rot
 
 
 @dataclass(frozen=True)
@@ -99,6 +99,64 @@ def forward(vel, acc, jer, p: FlatParams):
         dim=-1,
     )
     return quat, omg
+
+
+def forward_full(vel, acc, jer, psi, dpsi, p: FlatParams):
+    """Full map with yaw: (v, a, j, ψ, ψ̇) → (thrust (...), quat (..., 4),
+    ω (..., 3)) (ref flatness.hpp:150-228 ``forward``)."""
+    zu, w, w_term, cp_term = _zu(vel, acc, p)
+    zu_norm = torch.linalg.norm(zu, dim=-1, keepdim=True)
+    z = zu / zu_norm
+
+    g3 = torch.zeros_like(vel)
+    g3[..., 2] = p.grav
+    f_term = p.mass * (acc + g3) + p.dv * w
+    thr = torch.sum(z * f_term, dim=-1)
+
+    tilt_den = torch.sqrt(2.0 * (1.0 + z[..., 2]))
+    tw, tx, ty = 0.5 * tilt_den, -z[..., 1] / tilt_den, z[..., 0] / tilt_den
+    ch, sh = torch.cos(0.5 * psi), torch.sin(0.5 * psi)
+    quat = torch.stack([tw * ch, tx * ch + ty * sh, ty * ch - tx * sh,
+                        tw * sh], dim=-1)
+
+    v_dot_a = torch.sum(vel * acc, dim=-1, keepdim=True)
+    dw_term = p.cp * v_dot_a / cp_term
+    dw = w_term * acc + dw_term * vel
+    dzu = jer + (p.dh / p.mass) * dw
+    eye = torch.eye(3, dtype=zu.dtype, device=zu.device)
+    ng = (eye - z[..., :, None] * z[..., None, :]) / zu_norm[..., None]
+    dz = torch.einsum("...ij,...j->...i", ng, dzu)
+
+    cps, sps = torch.cos(psi), torch.sin(psi)
+    omg_den = z[..., 2] + 1.0
+    omg_term = dz[..., 2] / omg_den
+    omg = torch.stack(
+        [
+            dz[..., 0] * sps - dz[..., 1] * cps
+            - (z[..., 0] * sps - z[..., 1] * cps) * omg_term,
+            dz[..., 0] * cps + dz[..., 1] * sps
+            - (z[..., 0] * cps + z[..., 1] * sps) * omg_term,
+            (z[..., 1] * dz[..., 0] - z[..., 0] * dz[..., 1]) / omg_den
+            + dpsi,
+        ],
+        dim=-1,
+    )
+    return thr, quat, omg
+
+
+def state_on_traj(traj, t, p: FlatParams):
+    """Trajectory state → (pos, vel, R, Ṙ) at time(s) t, Ṙ = R ω̂ (ref
+    sw_manager.hpp:307-324 getStateOnTrajStamp)."""
+    pos, vel, acc, jer = traj.pvaj(t)
+    quat, omg = forward(vel, acc, jer, p)
+    R = quat_to_rot(quat)
+    return pos, vel, R, R @ hat(omg)
+
+
+def pose_on_traj(traj, t, p: FlatParams):
+    """(pos, R) at time(s) t (ref sw_manager.hpp:332-341)."""
+    pos, vel, acc, jer = traj.pvaj(t)
+    return pos, quat_to_rot(tilt_quat(vel, acc, p))
 
 
 @dataclass(frozen=True)

@@ -82,10 +82,14 @@ def build_system(q, T, head, tail, s: int = 3):
 
 def solve(q, T, head, tail, s: int = 3) -> torch.Tensor:
     """(q, T) → coefficients (..., N, 2s, 3), ascending powers.  With a
-    leading scenario axis ``torch.linalg.solve`` takes the batch of
-    systems."""
+    leading scenario axis ``torch.linalg.solve_ex`` takes the batch of
+    systems.  A singular system (durations overflowed by a far line-search
+    trial) gives NaN coefficients, as the JAX package's solve does, and the
+    optimizer rejects the trial; nothing raises or waits for the card."""
     A, rhs = build_system(q, T, head, tail, s)
-    c = torch.linalg.solve(A, rhs)
+    c, info = torch.linalg.solve_ex(A, rhs)
+    c = torch.where((info == 0)[..., None, None], c,
+                    torch.full_like(c, math.nan))
     return c.reshape(tuple(T.shape) + (2 * s, 3))
 
 

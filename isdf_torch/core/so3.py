@@ -23,6 +23,38 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     return r.reshape(q.shape[:-1] + (3, 3))
 
 
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) → quaternion (w, x, y, z), w ≥ 0.
+
+    The four-branch Shepperd selection (the largest of 1 + tr and
+    1 + 2·m_kk − tr), safe at 180° where the trace-only branch degenerates.
+    Not used in any gradient path."""
+    m00, m11, m22 = R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    r01, r02, r12 = R[..., 0, 1], R[..., 0, 2], R[..., 1, 2]
+    r10, r20, r21 = R[..., 1, 0], R[..., 2, 0], R[..., 2, 1]
+    # branch k has 4·q_k² = t_k; the other components follow from the
+    # (anti)symmetric parts
+    tw = 1.0 + tr
+    tx = 1.0 + m00 - m11 - m22
+    ty = 1.0 - m00 + m11 - m22
+    tz = 1.0 - m00 - m11 + m22
+    qs = torch.stack(
+        [
+            torch.stack([tw, r21 - r12, r02 - r20, r10 - r01], dim=-1),
+            torch.stack([r21 - r12, tx, r01 + r10, r02 + r20], dim=-1),
+            torch.stack([r02 - r20, r01 + r10, ty, r12 + r21], dim=-1),
+            torch.stack([r10 - r01, r02 + r20, r12 + r21, tz], dim=-1),
+        ],
+        dim=-2,
+    )                                       # (..., 4 branches, 4 components)
+    k = torch.argmax(torch.stack([tw, tx, ty, tz], dim=-1), dim=-1)
+    q = torch.gather(qs, -2, k[..., None, None].expand(
+        k.shape + (1, 4)))[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., 0:1] < 0, -1.0, 1.0)
+
+
 def hat(w: torch.Tensor) -> torch.Tensor:
     """Vector (..., 3) → skew matrix (..., 3, 3)."""
     zeros = torch.zeros_like(w[..., 0])

@@ -1,5 +1,5 @@
-"""Back-end trajectory optimizer (counterpart of ``isdf_tpu/opt/backend.py``,
-``method="lbfgs"``).
+"""Back-end trajectory optimizer (counterpart of ``isdf_tpu/opt/backend.py``:
+``method="lbfgs"`` or ``"lmbm"``, optionally monitored).
 
 Decision variables x = [τ (N) | ξ (3(N−1))]: τ maps to piece times through
 the diffeomorphism (core/timemap), ξ are the interior waypoints.  One cost
@@ -18,8 +18,8 @@ theorem).  All gradients come from autograd through this scalar.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,7 +28,7 @@ from isdf_torch.core import minco, timemap
 from isdf_torch.core.poly import PolyTraj, beta
 from isdf_torch.core.smoothing import clip, smoothed_l1
 from isdf_torch.device import resolve_device
-from isdf_torch.opt import lbfgs
+from isdf_torch.opt import lbfgs, lmbm
 from isdf_torch.opt.attitude import attitude_penalty, pad_attitude_refs
 from isdf_torch.sweep.sweep_sdf import sweep_sdf_warm
 
@@ -122,11 +122,24 @@ def swept_penalty(shape, traj: PolyTraj, params, w: BackendWeights, points,
     return cost, t_star
 
 
+class CostBreakdown(NamedTuple):
+    total: torch.Tensor
+    energy: torch.Tensor
+    time: torch.Tensor
+    dyn: torch.Tensor
+    safety: torch.Tensor
+
+
 def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
                  points, mask, integral_res: int = 64, coarse_n: int = 64,
-                 refine_rounds: int = 16, att=None, weight_ar: float = 0.0,
-                 bridge: bool = True):
-    """cost_and_grad(x, aux) for opt.lbfgs; aux = t* warm starts (P,).
+                 refine_rounds: int = 16, with_breakdown: bool = False,
+                 att=None, weight_ar: float = 0.0, bridge: bool = True):
+    """cost_and_grad(x, aux) for opt.lbfgs / opt.lmbm; aux = t* warm starts
+    (P,).  With ``with_breakdown`` → (cost_and_grad, raw_cost,
+    cost_and_grad_bd): raw_cost(x, t_warm) → (total, (t*, CostBreakdown)),
+    and cost_and_grad_bd threads aux = (t_warm, CostBreakdown), so the
+    latest breakdown rides in the solver state and a monitor reads it with
+    no extra evaluation.
 
     With a leading scenario axis on head/tail (B, 3, 3), points (B, P, 3),
     mask (B, P), x (B, 4N−3) and aux (B, P), f is the per-scenario cost (B,)
@@ -148,25 +161,51 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
         safety, t_star = swept_penalty(
             shape, traj, params, w, points, mask, t_warm, coarse_n,
             refine_rounds)
-        return e + t_cost + dyn + safety, t_star
+        total = e + t_cost + dyn + safety
+        return total, (t_star, CostBreakdown(total, e, t_cost, dyn, safety))
 
-    def cost_and_grad(x, aux):
+    def value_and_grad(x, t_warm):
         with torch.enable_grad():
             xg = x.detach().requires_grad_(True)
-            f, t_star = raw_cost(xg, aux)
+            f, (t_star, bd) = raw_cost(xg, t_warm)
             (g,) = torch.autograd.grad(f.sum(), xg)
-        return f.detach(), g, t_star
+        return f.detach(), g, t_star, CostBreakdown(
+            *(v.detach() for v in bd))
 
-    return cost_and_grad
+    def cost_and_grad(x, aux):
+        f, g, t_star, _ = value_and_grad(x, aux)
+        return f, g, t_star
+
+    if not with_breakdown:
+        return cost_and_grad
+
+    def cost_and_grad_bd(x, aux):
+        f, g, t_star, bd = value_and_grad(x, aux[0])
+        return f, g, (t_star, bd)
+
+    return cost_and_grad, raw_cost, cost_and_grad_bd
 
 
 def optimize(shape, conf, head, tail, q0, T0, points, mask, t_warm0=None,
-             max_iters: Optional[int] = None, params=None, rot_refs=None,
-             device=None, dtype=torch.float32):
-    """Full back-end L-BFGS solve → (PolyTraj, LBFGSResult).  Inputs may be
-    arrays or tensors; they are placed on ``device`` (default: the CUDA
-    card) in ``dtype``.  ``params`` is the pose map (default: the config's
-    FlatParams; PlanarPose for the planar planner)."""
+             max_iters: Optional[int] = None, method: str = "lbfgs",
+             params=None, rot_refs=None, monitor=None,
+             monitor_chunk: int = 4, device=None, dtype=torch.float32):
+    """Full back-end solve (ref optimize_traj_lmbm, back_end_optimizer.cpp:
+    99) → (PolyTraj, LBFGSResult).  Inputs may be arrays or tensors; they
+    are placed on ``device`` (default: the CUDA card) in ``dtype``.
+    ``params`` is the pose map (default: the config's FlatParams; PlanarPose
+    for the planar planner).
+
+    method: "lbfgs" (the smoothed costs; the reference's declared
+    interchangeable variant, hpp:730) or "lmbm" (the nonsmooth bundle loop,
+    opt/lmbm.py; the reference's default outer solver).
+    monitor: an optional utils.monitor.OptiMonitor (L-BFGS only, as in the
+    JAX package): the solve runs in chunks of ``monitor_chunk`` iterations
+    and streams a CostBreakdown after each; the monitor's Controller can
+    stop it between chunks.  The streamed breakdown is the one of the last
+    accepted line-search trial, under the t* warm seeds from before that
+    iteration's refresh: a monitor feed, not an exact final cost (it saves
+    an evaluation a chunk)."""
     dev = resolve_device(device)
 
     def on(a, dt=dtype):
@@ -184,23 +223,34 @@ def optimize(shape, conf, head, tail, q0, T0, points, mask, t_warm0=None,
     att = None
     if rot_refs is not None and conf.weight_ar_backend > 0.0:
         att = pad_attitude_refs(rot_refs, dtype, dev)
-    cost_and_grad = make_cost_fn(
+    cost_and_grad, _, cost_and_grad_bd = make_cost_fn(
         shape, params, w, head, tail, N, points, mask,
         integral_res=conf.integralIntervs,
         coarse_n=conf.sweep_coarse_samples,
         refine_rounds=conf.sweep_refine_rounds,
         att=att, weight_ar=conf.weight_ar_backend,
-        bridge=conf.attitude_bridge,
+        bridge=conf.attitude_bridge, with_breakdown=True,
     )
     iters = max_iters if max_iters is not None else conf.max_iterations
-    res = lbfgs.minimize(
-        cost_and_grad, x0, t_warm0,
-        m=conf.mem_size,
-        max_iters=iters,
-        g_epsilon=max(conf.g_epsilon, 1e-7),
-        past=conf.past,
-        rel_cost_tol=conf.relCostTol,
-    )
+    lbfgs_kw = dict(g_epsilon=max(conf.g_epsilon, 1e-7), past=conf.past,
+                    rel_cost_tol=conf.relCostTol)
+    if method == "lmbm":
+        res = lmbm.minimize(cost_and_grad, x0, t_warm0, m=conf.mem_size,
+                            max_iters=iters)
+    elif monitor is not None:
+        monitor.begin_solve()
+        zero_bd = CostBreakdown(*(torch.zeros((), dtype=dtype,
+                                              device=dev),) * 5)
+        res = lbfgs.minimize_chunked(
+            cost_and_grad_bd, x0, (t_warm0, zero_bd), m=conf.mem_size,
+            max_iters=iters, chunk=monitor_chunk,
+            # the latest breakdown rides in aux: no re-evaluation
+            callback=lambda r: monitor.on_chunk(r.n_iters, r.aux[1]),
+            **lbfgs_kw)
+        res = replace(res, aux=res.aux[0])
+    else:
+        res = lbfgs.minimize(cost_and_grad, x0, t_warm0, m=conf.mem_size,
+                             max_iters=iters, **lbfgs_kw)
     with torch.no_grad():
         traj, _, _ = build_traj(res.x, N, head, tail)
     return traj, res

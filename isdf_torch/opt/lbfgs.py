@@ -1,5 +1,6 @@
 """L-BFGS with the Lewis–Overton weak-Wolfe line search (counterpart of
-``isdf_tpu/opt/lbfgs.py``: ``minimize`` and ``minimize_lockstep``).
+``isdf_tpu/opt/lbfgs.py``: ``minimize``, ``minimize_chunked`` and
+``minimize_lockstep``).
 
 The JAX version is one ``lax.while_loop`` under jit; here the loops are
 Python loops over tensors, and the scalar decisions (Armijo, curvature,
@@ -32,11 +33,39 @@ class LBFGSResult:
     n_evals: int
     converged: bool
     aux: Any
-    history: torch.Tensor   # (max_iters,) cost trace, NaN-padded
+    history: torch.Tensor   # (trace_len,) cost trace, NaN-padded
+    state: Any = None       # the solver state to resume from (minimize)
+    stats: Any = None       # lmbm: serious and null steps, restarts
 
 
-def _two_loop(g, S, Y, rho, n_corr: int, head: int, m: int):
-    """Two-loop recursion over a ring buffer (most recent = head−1)."""
+@dataclass
+class LBFGSState:
+    """Solver state of :func:`minimize` between iterations, enough to resume
+    a solve (chunked execution)."""
+
+    x: torch.Tensor
+    f: torch.Tensor
+    g: torch.Tensor
+    aux: Any
+    S: torch.Tensor          # (m, n) s history
+    Y: torch.Tensor          # (m, n) y history
+    rho: torch.Tensor        # (m,)
+    n_corr: int              # valid corrections
+    head: int                # ring-buffer head
+    it: int
+    evals: int
+    done: bool
+    fpast: list              # (past,) rolling costs
+
+
+def _two_loop(g, S, Y, rho, n_corr: int, head: int, m: int,
+              gamma_clamp=None):
+    """Two-loop recursion over a ring buffer (most recent = head−1).
+
+    gamma_clamp: optional (lo, hi) safeguard for the initial-Hessian scaling
+    γ = s·y/y·y (the Fortran LMBM's SCLPAR clamp: a degenerate last pair,
+    tiny s·y at a kink, must not collapse the direction); None keeps the
+    classic unclamped scaling."""
     q = g
     alphas = [0.0] * m
     for i in range(n_corr):
@@ -49,8 +78,11 @@ def _two_loop(g, S, Y, rho, n_corr: int, head: int, m: int):
         yy = torch.dot(Y[last], Y[last])
         sy = torch.dot(S[last], Y[last])
         gamma = sy / torch.clamp(yy, min=1e-30)
+        if gamma_clamp is not None:
+            gamma = torch.clamp(gamma, *gamma_clamp)
     else:
-        gamma = 1.0
+        gamma = 1.0 if gamma_clamp is None else \
+            min(max(1.0, gamma_clamp[0]), gamma_clamp[1])
     r = gamma * q
     for i in range(n_corr):
         slot = (head - n_corr + i) % m
@@ -60,11 +92,13 @@ def _two_loop(g, S, Y, rho, n_corr: int, head: int, m: int):
 
 
 def _line_search(cost_and_grad, x, f0, g0, d, aux, max_ls, c1=1e-4, c2=0.9,
-                 step0=1.0):
+                 step0=1.0, armijo_slack=0.0):
     """Lewis–Overton bisection search for the weak Wolfe conditions, with a
     safeguarded quadratic step on Armijo failure.  aux is frozen during the
     search (every trial evaluates the same f(·, aux)); the accepted trial's
-    refreshed aux is carried out.  Returns (step, f, g, aux, ok, evals)."""
+    refreshed aux is carried out.  armijo_slack is an absolute slack on the
+    sufficient decrease (the baseline-skip mode's allowance for the aux
+    drift).  Returns (step, f, g, aux, ok, evals)."""
     f0v = float(f0)
     dg0 = float(torch.dot(g0, d))
     step, lo, hi = float(step0), 0.0, math.inf
@@ -75,7 +109,7 @@ def _line_search(cost_and_grad, x, f0, g0, d, aux, max_ls, c1=1e-4, c2=0.9,
         ft, gt, auxt = cost_and_grad(x + step * d, aux)
         evals += 1
         ftv = float(ft)
-        armijo = ftv <= f0v + c1 * step * dg0
+        armijo = ftv <= f0v + c1 * step * dg0 + armijo_slack
         curv = float(torch.dot(gt, d)) >= c2 * dg0
         ok = armijo and curv
         if not armijo:
@@ -107,65 +141,115 @@ def minimize(
     past: int = 10,
     rel_cost_tol: float = 1e-8,
     max_ls: int = 24,
+    resume_state: Optional[LBFGSState] = None,
+    trace_len: Optional[int] = None,
+    consistent_baseline: bool = True,
 ) -> LBFGSResult:
-    """Run L-BFGS from x0.
+    """Run L-BFGS from x0, or ``max_iters`` more iterations from a previous
+    result's ``state`` (``resume_state``: the basis of
+    :func:`minimize_chunked`; a converged state stays converged).
+    ``trace_len`` sizes the cost trace (default max_iters).
 
-    Every iteration re-evaluates cost+grad at (x, aux) first, so the
-    line-search baseline and the direction agree with the refreshed aux (t*
-    warm seeds) — the JAX solver's ``consistent_baseline=True``, its
-    default and the only mode the planner uses."""
-    n = x0.shape[0]
+    consistent_baseline (default True): every iteration re-evaluates
+    cost+grad at (x, aux) first, so the line-search baseline and the
+    direction agree with the refreshed aux (t* warm seeds).  False reuses the
+    accepted trial's (f, g), computed under the pre-refresh aux, and absorbs
+    the drift with a relative Armijo slack: one cost evaluation fewer an
+    iteration, at some loss of quality on marginal scenarios."""
+    if trace_len is None:
+        trace_len = max_iters
+    if resume_state is not None:
+        st = replace(resume_state, S=resume_state.S.clone(),
+                     Y=resume_state.Y.clone(), rho=resume_state.rho.clone(),
+                     fpast=list(resume_state.fpast))
+        x0 = st.x
     dtype, dev = x0.dtype, x0.device
-    trace = torch.full((max_iters,), math.nan, dtype=dtype, device=dev)
-    f, g, aux = cost_and_grad(x0, aux0)
-    x = x0
-    S = torch.zeros((m, n), dtype=dtype, device=dev)
-    Y = torch.zeros((m, n), dtype=dtype, device=dev)
-    rho = torch.zeros((m,), dtype=dtype, device=dev)
-    n_corr, head, it, evals = 0, 0, 0, 1
-    fpast = [math.inf] * past
-    fpast[0] = float(f)
-    done = False
+    trace = torch.full((trace_len,), math.nan, dtype=dtype, device=dev)
+    if resume_state is None:
+        n = x0.shape[0]
+        f, g, aux = cost_and_grad(x0, aux0)
+        fpast = [math.inf] * past
+        fpast[0] = float(f)
+        st = LBFGSState(
+            x=x0, f=f, g=g, aux=aux,
+            S=torch.zeros((m, n), dtype=dtype, device=dev),
+            Y=torch.zeros((m, n), dtype=dtype, device=dev),
+            rho=torch.zeros((m,), dtype=dtype, device=dev),
+            n_corr=0, head=0, it=0, evals=1, done=False, fpast=fpast)
+    it_end = st.it + max_iters
 
-    while not done and it < max_iters:
-        f0, g0, _ = cost_and_grad(x, aux)
-        d = -_two_loop(g0, S, Y, rho, n_corr, head, m)
+    while not st.done and st.it < it_end:
+        if consistent_baseline:
+            f0, g0, _ = cost_and_grad(st.x, st.aux)
+            slack = 0.0
+        else:
+            f0, g0 = st.f, st.g
+            # purely relative: vanishes as f → 0
+            slack = 1e-6 * abs(float(st.f))
+        d = -_two_loop(g0, st.S, st.Y, st.rho, st.n_corr, st.head, m)
         if not float(torch.dot(d, g0)) < 0:
             d = -g0
         # without curvature pairs d = −g; scale the first trial step
         # like LBFGS-Lite (ref lbfgs.hpp:565: step = 1/‖d‖ at k = 1)
-        step0 = 1.0 if n_corr > 0 else \
+        step0 = 1.0 if st.n_corr > 0 else \
             1.0 / max(float(torch.linalg.norm(d)), 1.0)
         step, f, g, aux, ok, ls_evals = _line_search(
-            cost_and_grad, x, f0, g0, d, aux, max_ls, step0=step0)
-        x_new = x + step * d
-        s = x_new - x
+            cost_and_grad, st.x, f0, g0, d, st.aux, max_ls, step0=step0,
+            armijo_slack=slack)
+        x_new = st.x + step * d
+        s = x_new - st.x
         y = g - g0
         sy = float(torch.dot(s, y))
         good = ok and sy > 1e-10 * float(torch.linalg.norm(s)) * float(
             torch.linalg.norm(y))
         if good:
-            S[head] = s
-            Y[head] = y
-            rho[head] = 1.0 / sy
-            head = (head + 1) % m
-            n_corr = min(n_corr + 1, m)
+            st.S[st.head] = s
+            st.Y[st.head] = y
+            st.rho[st.head] = 1.0 / sy
+            st.head = (st.head + 1) % m
+            st.n_corr = min(st.n_corr + 1, m)
 
         gnorm = float(torch.linalg.norm(g)) / max(
             float(torch.linalg.norm(x_new)), 1.0)
         fv = float(f)
         # the slot about to be overwritten was written `past` iterations ago
-        f_old = fpast[(it + 1) % past]
-        conv_f = it >= past and (f_old - fv) / max(abs(fv), 1.0) < rel_cost_tol
-        done = gnorm < g_epsilon or conv_f or not ok
-        fpast[(it + 1) % past] = fv
-        trace[it % max_iters] = f
-        x = x_new
-        evals += ls_evals + 1
-        it += 1
+        f_old = st.fpast[(st.it + 1) % past]
+        conv_f = st.it >= past and \
+            (f_old - fv) / max(abs(fv), 1.0) < rel_cost_tol
+        st.done = gnorm < g_epsilon or conv_f or not ok
+        st.fpast[(st.it + 1) % past] = fv
+        trace[st.it % trace_len] = f
+        st.x, st.f, st.g, st.aux = x_new, f, g, aux
+        st.evals += ls_evals + (1 if consistent_baseline else 0)
+        st.it += 1
 
-    return LBFGSResult(x=x, f=f, g=g, n_iters=it, n_evals=evals,
-                       converged=done, aux=aux, history=trace)
+    return LBFGSResult(x=st.x, f=st.f, g=st.g, n_iters=st.it,
+                       n_evals=st.evals, converged=st.done, aux=st.aux,
+                       history=trace, state=st)
+
+
+def minimize_chunked(cost_and_grad, x0, aux0=None, m: int = 16,
+                     max_iters: int = 300, chunk: int = 8, callback=None,
+                     **kw) -> LBFGSResult:
+    """L-BFGS in chunks of ``chunk`` iterations, the solver state carried
+    across them, with ``callback(result)`` between chunks (the reference's
+    per-iteration earlyExit/debug affordance, back_end_optimizer.hpp:
+    888-927); a callback that returns False stops the solve.  The iterates
+    equal :func:`minimize`'s."""
+    res = None
+    state = None
+    done_iters = 0
+    while done_iters < max_iters:
+        n = min(chunk, max_iters - done_iters)
+        res = minimize(cost_and_grad, x0, aux0, m=m, max_iters=n,
+                       resume_state=state, trace_len=chunk, **kw)
+        state = res.state
+        done_iters = res.n_iters
+        if callback is not None and callback(res) is False:
+            break
+        if res.converged or done_iters == 0:
+            break
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ Pipeline per plan request:
   2. waypoint subsample every ~traj_parlength meters
   3. obstacle gather: occupied voxels in AABBs around the waypoints
   4. mid end: MINCO + waypoint attraction fit → warm start
-  5. back end: L-BFGS with the swept-volume SDF safety penalty (K1)
+  5. back end: L-BFGS with the swept-volume SDF safety penalty (K1),
+     optionally monitored
   6. swept-SDF audit (K1); violations are injected and re-solved
 """
 
@@ -181,12 +182,15 @@ class PlannerManager:
 
     # -- full plan (ref targetRcvCallBack) -----------------------------------
     def plan(self, start, goal, max_iters: Optional[int] = None,
-             start_vel=None, start_acc=None) -> PlanResult:
+             start_vel=None, start_acc=None, monitor=None) -> PlanResult:
         """Plan from ``start`` to rest at ``goal``; ``max_iters`` caps each
         back-end solve (default: ``conf.max_iterations``).  start_vel and
         start_acc are the head state's derivative rows (default: rest): a
         closed loop replans from the commanded state so the new trajectory
-        continues the flight smoothly."""
+        continues the flight smoothly.  ``monitor``: an optional
+        utils.monitor.OptiMonitor streaming each back-end solve's cost
+        breakdowns (the first solve and the safety re-plans, one
+        ``begin_solve`` each)."""
         if self.gridmap is None:
             raise RuntimeError("call set_map first")
         conf = self.conf
@@ -261,7 +265,7 @@ class PlannerManager:
         t0 = time.perf_counter()
         tau, q_ws = backend.unpack(opt_x, N)
         solve = dict(max_iters=max_iters, rot_refs=rot_refs,
-                     device=self.device, dtype=self.dtype)
+                     monitor=monitor, device=self.device, dtype=self.dtype)
         traj, res = backend.optimize(
             self.shape, conf, head, tail, q_ws, timemap.tau_to_T(tau),
             pts, mask, **solve)
@@ -349,8 +353,10 @@ class PlannerManager:
         order = np.argsort(sdf[near], kind="stable")
         return live[near][order], t_star[near][order]
 
-    def audit_collision(self, traj) -> float:
-        """Minimum swept SDF over all occupied voxels near the trajectory."""
+    def audit_collision(self, traj, n_samples: int = 400) -> float:
+        """Minimum swept SDF over all occupied voxels near the trajectory.
+        ``n_samples`` is accepted as the JAX package's signature has it and
+        is not read: the audit's coarse scan is duration-adaptive."""
         live, sdf, _ = self._audit_sdf(traj)
         if live is None:
             return float("inf")

@@ -66,7 +66,7 @@ def plan_planar(conf: Config, shape, points2d: np.ndarray, start_xy,
     # a one-layer grid: the 3-D A* cannot leave the plane
     gm = GridMap.from_points(
         pts3, (lo[0], hi[0], lo[1], hi[1], -res / 2, res / 2), res,
-        conf.sta_threshold)
+        conf.sta_threshold, device=dev)
 
     s3 = np.array([start_xy[0], start_xy[1], 0.0])
     g3 = np.array([goal_xy[0], goal_xy[1], 0.0])

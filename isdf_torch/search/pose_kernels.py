@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from isdf_torch.core.so3 import rpy_to_rot
+from isdf_torch.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -51,11 +52,12 @@ def _voxelize(shape, rolls_rad, pitches_rad, kernel_size: int, res: float,
     return shape.sdf(p_local) <= safemargin
 
 
-def build_pose_kernels(shape, conf, device="cpu",
+def build_pose_kernels(shape, conf, device=None,
                        dtype=torch.float64) -> PoseKernels:
-    """Voxelized body at every (roll, pitch).  float64 by default: a
-    one-time precompute, and the ≤ safemargin test then agrees with the
-    reference's voxelization at the boundary."""
+    """Voxelized body at every (roll, pitch), on ``device`` (default: the
+    CUDA card).  float64 by default: a one-time precompute, and the
+    ≤ safemargin test then agrees with the reference's voxelization at the
+    boundary."""
     # a kernel smaller than the body silently truncates it, making the A*
     # feasibility volume optimistic
     half = 0.5 * (conf.kernel_size - 1) * conf.occupancy_resolution
@@ -67,6 +69,7 @@ def build_pose_kernels(shape, conf, device="cpu",
             " kernel_size or occupancy_resolution",
             stacklevel=2,
         )
+    device = resolve_device(device)
     rolls_deg, pitches_deg = pose_grid(conf)
     rolls = torch.as_tensor(np.radians(rolls_deg), dtype=dtype, device=device)
     pitches = torch.as_tensor(np.radians(pitches_deg), dtype=dtype,

@@ -1,15 +1,19 @@
-"""Observability: structured metrics stream.
+"""Observability: structured metrics stream and a run controller.
 
-``Metrics`` is copied unchanged from ``isdf_tpu/utils/obs.py`` (it holds no
-JAX): metrics are appended to an in-memory log with timestamps and
-optionally mirrored as JSON lines to a file (the reference's
-debug_publisher topics, src/utils/src/debug_publisher.cpp:11-33).
+``Metrics`` and ``Controller`` are copied unchanged from
+``isdf_tpu/utils/obs.py`` (they hold no JAX): metrics are appended to an
+in-memory log with timestamps and optionally mirrored as JSON lines to a
+file (the reference's debug_publisher topics,
+src/utils/src/debug_publisher.cpp:11-33); the pause/stop/step affordance of
+the reference's /debug_cmd opcodes 21/22 (plan_manager.cpp:502-585) is a
+host-side Controller checked between chunks of a solve.
 """
 
 from __future__ import annotations
 
 import json
 import time
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 
@@ -39,3 +43,32 @@ class Metrics:
             if key in rec:
                 return rec[key]
         return default
+
+
+@dataclass
+class Controller:
+    """Host-side pause/stop/step control between chunks of a solve (the
+    reference's exit/pause/next_step flags, back_end_optimizer.hpp:116-118,
+    driven by /debug_cmd opcodes)."""
+
+    stop_requested: bool = False
+    paused: bool = False
+    _step_once: bool = False
+
+    def stop(self):           # opcode 21
+        self.stop_requested = True
+
+    def toggle_pause(self):   # opcode 22
+        self.paused = not self.paused
+
+    def step(self):           # "next_step"
+        self._step_once = True
+
+    def should_continue(self) -> bool:
+        if self.stop_requested:
+            self.stop_requested = False
+            return False
+        while self.paused and not self._step_once:
+            time.sleep(0.02)
+        self._step_once = False
+        return True

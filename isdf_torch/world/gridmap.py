@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from isdf_torch.device import resolve_device
+
 
 @dataclass(frozen=True)
 class GridMap:
@@ -27,11 +29,11 @@ class GridMap:
     def from_points(points: np.ndarray,
                     bounds: Optional[Tuple[float, ...]] = None,
                     resolution: float = 0.15, sta_threshold: int = 1,
-                    pad: float = 0.0, device="cpu") -> "GridMap":
+                    pad: float = 0.0, device=None) -> "GridMap":
         """Point cloud → occupancy (ref PCSmap_manager.cpp:106-181).
         bounds = (xmin, xmax, ymin, ymax, zmin, zmax); None measures the
         cloud's own bounding box (+pad).  Built on the host, then moved to
-        ``device``."""
+        ``device`` (default: the CUDA card)."""
         if bounds is None:
             p = np.asarray(points)
             lo, hi = p.min(axis=0) - pad, p.max(axis=0) + pad
@@ -46,6 +48,7 @@ class GridMap:
         counts = np.zeros(tuple(size), dtype=np.int32)
         np.add.at(counts, (idx[:, 0], idx[:, 1], idx[:, 2]), 1)
         occ = counts >= sta_threshold
+        device = resolve_device(device)
         return GridMap(occ=torch.as_tensor(occ, device=device),
                        origin=torch.as_tensor(origin, device=device),
                        resolution=float(resolution))

@@ -285,7 +285,7 @@ def test_min_body_sdf_matches_jax_audit():
     tpm = PlannerManager(Config(**FLY), shape_name="Ball", device="cpu",
                          dtype=F64)
     jgm = JGridMap.from_points(pts, FLY["mapBound"], 0.5, 1)
-    gm = GridMap.from_points(pts, FLY["mapBound"], 0.5, 1)
+    gm = GridMap.from_points(pts, FLY["mapBound"], 0.5, 1, device="cpu")
     occ = _occupied_centers(gm, F64)
     np.testing.assert_allclose(occ.numpy(), jgm.occupied_centers(),
                                rtol=0, atol=1e-12)

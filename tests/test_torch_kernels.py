@@ -830,3 +830,36 @@ def test_planar_grid_kernel_bitwise_on_card(coarse_n, cold):
                                                coarse_n=coarse_n, rounds=8)
     torch.cuda.synchronize()
     assert _same(got, want)
+
+
+@pytest.mark.cuda
+def test_shape_without_device_sdf_sweeps_on_the_card():
+    """A hand-built analytic shape on CUDA tensors takes the non-fused path
+    (its sweeps are counted by sweep_sdf.XLA_CALLS, K1 never launches) and
+    agrees with the same cold sweep in float64 on the CPU (1e-4); the K1
+    wrapper itself still refuses the shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import importlib
+
+    ss = importlib.import_module("isdf_torch.sweep.sweep_sdf")
+    dev = torch.device("cuda")
+    shape, params, (pts, tw, pose, starts, durs, coeffs) = _inputs(
+        "Ball", dev, P=256)
+    bare = Shape("HandBuilt", shape.sdf, shape.bounds, sdf3=shape.sdf3)
+    traj = PolyTraj(durs, coeffs)
+    before = (ss.XLA_CALLS, fused_zoom.LAUNCHES)
+    warm = sweep_sdf_warm(bare, traj, params, pts, tw, coarse_n=64,
+                          refine_rounds=8)
+    cold = sweep_sdf(bare, traj, params, pts, coarse_n=64, refine_rounds=8)
+    torch.cuda.synchronize()
+    assert (ss.XLA_CALLS, fused_zoom.LAUNCHES) == (before[0] + 2, before[1])
+    assert bool(torch.isfinite(warm[0]).all() & torch.isfinite(cold[0]).all())
+    cpu = sweep_sdf(bare, PolyTraj(durs.double().cpu(), coeffs.double().cpu()),
+                    params, pts.double().cpu(), coarse_n=64, refine_rounds=8,
+                    device="cpu")
+    np.testing.assert_allclose(cold[0].cpu().numpy(), cpu[0].numpy(),
+                               atol=1e-4)
+    with pytest.raises(NotImplementedError, match="HandBuilt"):
+        fused_zoom.sweep_warm_fused(bare, params, pts, tw, pose, starts, durs,
+                                    coeffs)

@@ -136,7 +136,7 @@ def front(objs):
     ts = shape_from_config(tc, device="cpu", dtype=F64)
     return dict(jc=jc, tc=tc, js=js, ts=ts,
                 kj=jpk.build_pose_kernels(js, jc),
-                kt=pose_kernels.build_pose_kernels(ts, tc))
+                kt=pose_kernels.build_pose_kernels(ts, tc, device="cpu"))
 
 
 def test_shape_from_config_builds_the_grid_shape(front):
@@ -164,7 +164,7 @@ def test_pose_kernels_feasibility_and_astar_match_jax(front):
     assert kt.kernels.any() and not kt.kernels.all()
     cloud = _cloud()
     jg = JGridMap.from_points(cloud, BOUNDS, 1.0, 1)
-    tg = GridMap.from_points(cloud, BOUNDS, 1.0, 1)
+    tg = GridMap.from_points(cloud, BOUNDS, 1.0, 1, device="cpu")
     fj = np.asarray(jpk.pose_feasibility(jg.occ, kj.kernels))
     ft = pose_kernels.pose_feasibility(tg.occ, kt.kernels).numpy()
     np.testing.assert_array_equal(ft, fj)
@@ -193,7 +193,7 @@ def test_short_mesh_plan_runs_on_the_plain_version(objs, monkeypatch):
                          vmax=10.0, omgmax=10.0, thetamax=100.0, rho=20.0))
     shape = shape_from_config(conf, device="cpu", dtype=F64)
     pm = PlannerManager(conf, shape=shape, device="cpu", dtype=F64)
-    pm.set_map(GridMap.from_points(_cloud(), BOUNDS, 1.0, 1))
+    pm.set_map(GridMap.from_points(_cloud(), BOUNDS, 1.0, 1, device="cpu"))
     calls = [0]
     ref = grid_zoom.grid_sweep_warm_fused_ref
 

@@ -26,7 +26,10 @@ def test_import_leaves_jax_and_isdf_tpu_unloaded():
         "from isdf_torch.plan import PlannerManager\n"
         "from isdf_torch.sweep import fused_zoom\n"
         "from isdf_torch.plan import planar, closed_loop, traj_server\n"
-        "from isdf_torch.world import moving\n"
+        "from isdf_torch.world import moving, pcd\n"
+        "from isdf_torch import demos\n"
+        "from isdf_torch.opt import checkpoint, lmbm\n"
+        "from isdf_torch.utils import monitor\n"
         "pm = PlannerManager(Config(), shape_name='Ball', device='cpu')\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'isdf_tpu')]\n"

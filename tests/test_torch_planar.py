@@ -322,7 +322,7 @@ def _maps():
                           np.random.default_rng(9).uniform(0, 8, (60, 3))])
     bounds = (0.0, 8.0, 0.0, 8.0, 0.0, 3.0)
     return (JGridMap.from_points(pts, bounds, 0.5, 1),
-            GridMap.from_points(pts, bounds, 0.5, 1))
+            GridMap.from_points(pts, bounds, 0.5, 1, device="cpu"))
 
 
 def test_gridmap_occupancy_helpers_match_jax():

@@ -45,7 +45,8 @@ def test_maps_gen_copy_matches():
 def test_gridmap_occupancy_and_esdf():
     pts = _wall_scene()
     jg = JGridMap.from_points(pts, CONF["mapBound"], 0.5, 1).with_esdf()
-    tg = GridMap.from_points(pts, CONF["mapBound"], 0.5, 1).with_esdf()
+    tg = GridMap.from_points(pts, CONF["mapBound"], 0.5, 1,
+                             device="cpu").with_esdf()
     np.testing.assert_array_equal(tg.occ.numpy(), np.asarray(jg.occ))
     np.testing.assert_array_equal(tg.origin.numpy(), np.asarray(jg.origin))
     np.testing.assert_array_equal(_edt2(tg.occ).numpy(),
@@ -55,7 +56,7 @@ def test_gridmap_occupancy_and_esdf():
     # the cloud's own bounding box, as run_demo builds demo grids
     cloud = maps_gen.map4(res=0.8, seed=0)
     jg = JGridMap.from_points(cloud, None, 1.0, 1)
-    tg = GridMap.from_points(cloud, None, 1.0, 1)
+    tg = GridMap.from_points(cloud, None, 1.0, 1, device="cpu")
     np.testing.assert_array_equal(tg.occ.numpy(), np.asarray(jg.occ))
     idx = np.array([[0, 0, 0], [3, 7, 2], [20, 11, 9]])
     np.testing.assert_allclose(
@@ -72,7 +73,8 @@ def test_pose_kernels_and_feasibility(name):
     conf = dict(CONF, kernel_size=9)
     jc, tc = JConfig(**conf), Config(**conf)
     kj = jpk.build_pose_kernels(jmake_shape(name, jc), jc)
-    kt = pose_kernels.build_pose_kernels(make_shape(name, tc), tc)
+    kt = pose_kernels.build_pose_kernels(make_shape(name, tc), tc,
+                                         device="cpu")
     np.testing.assert_array_equal(kt.kernels.numpy(), np.asarray(kj.kernels))
     assert kt.kernels.any() and not kt.kernels.all()
     rng = np.random.default_rng(0)
@@ -90,9 +92,10 @@ def test_astar_se3_path(use_native):
     jc, tc = JConfig(**CONF), Config(**CONF)
     pts = _wall_scene()
     jg = JGridMap.from_points(pts, CONF["mapBound"], 0.5, 1)
-    tg = GridMap.from_points(pts, CONF["mapBound"], 0.5, 1)
+    tg = GridMap.from_points(pts, CONF["mapBound"], 0.5, 1, device="cpu")
     kj = jpk.build_pose_kernels(jmake_shape("RoundedCone", jc), jc)
-    kt = pose_kernels.build_pose_kernels(make_shape("RoundedCone", tc), tc)
+    kt = pose_kernels.build_pose_kernels(make_shape("RoundedCone", tc), tc,
+                                         device="cpu")
     fj = np.asarray(jpk.pose_feasibility(jg.occ, kj.kernels))
     ft = pose_kernels.pose_feasibility(tg.occ, kt.kernels).numpy()
     start, goal = np.array([1.0, 5.0, 3.0]), np.array([10.5, 5.0, 3.0])
