@@ -58,7 +58,8 @@ Phases (any failure exits non-zero):
   7. fly     — closed-loop replanning among two moving obstacles
                (fly_closed_loop on the JAX package's `closed-loop` cli scene),
                K1's counter set to 0 just before the flight and read just
-               after; then the planar instantiations no demo reaches, each
+               after, a LiveFlightView riding along (its /state.json read
+               back once); then the planar instantiations no demo reaches, each
                through an entry point (K2: sweep_sdf_warm on a batch of
                planar trajectories; K4: zoom_refine; K3: audit_planar with
                the L robot), each counter set to 0 just before;
@@ -68,14 +69,16 @@ Phases (any failure exits non-zero):
                scenario), K4 and K3 (the L field, P = 4096) along demo 8's
                trajectory, each against its plain version and timed.
   9. lmbm    — demo 1's first back-end solve (the plan's mid-end result)
-               again under backend.optimize(method="lmbm") and "lbfgs",
-               capped at 200 iterations, each audited; K1's counter set to 0
-               just before each solve and read after its audit;
+               again under backend.optimize(method="lmbm") capped at 50
+               iterations and "lbfgs" capped at 200, each audited; K1's
+               counter set to 0 just before each solve and read after its
+               audit;
  10. golden  — the reference's whole-solve goldens (tests/golden/
                reference_solve_golden.json, gap and slalom): the initial
                cost and gradient at the reference's x0, the swept SDF on the
                reference's optimum, 80-iteration solves (L-BFGS float32,
-               LMBM float64 held in the band; LMBM float32 printed);
+               LMBM float64 held in the band; LMBM float32 printed, 40
+               iterations);
  11. monitor — PlannerManager.plan(monitor=OptiMonitor()) on demo 1's
                scene, equal to phase 3's plan, its breakdowns and ASCII
                cost curve; a solve stopped through the Controller;
@@ -85,8 +88,27 @@ Phases (any failure exits non-zero):
                non-fused path's counter counts exactly these calls, K1's
                and K3's none;
  13. run_demo — isdf_torch.demos.run_demo(7) and (8) on the default device,
-               equal to phase 6's plans.
-Phases 3–7 and 9–13 run before phase 2: a process that has run the kernel
+               equal to phase 6's plans;
+ 14. swept   — viz.swept_volume_mesh at 0.25 m on phase 3's and phase 5's
+               plans: K1 (K3) launches = 65,536-voxel chunks, the C++
+               marching tetrahedra, the mesh enclosing the path, its
+               vertices on the swept surface, sdf_time_curve at an audit
+               voxel;
+ 15. monitor demo — run_demo(1) with an OptiMonitor, then the monitor's
+               replay CSV and pose-kernel OBJ (the cost curve's PNG needs
+               matplotlib: not drawn here);
+ 16. sim     — render_depth at 640 × 480 against the CPU in float64, a
+               1,000-step hover under so3_control, sample_free_goals
+               against the CPU;
+ 17. cli     — `python3 -m isdf_torch.cli` in its own process, as a user
+               runs it, with a stand-in reference checkout as
+               $ISDF_REFERENCE_ROOT (demo 1's map as a PCD, demo 6's L as an
+               OBJ): demo 1 and demo 6 with --swept-mesh --view, demo 8,
+               closed-loop --max-time 9; each must write the JAX cli's files;
+ 18. volume kernels — after phase 8: K1 and K3 at the swept-volume mesh's
+               launch (P = 65,536, cold, coarse 128, rounds 24) against
+               their plain versions, bitwise, and timed.
+Phases 3–7 and 9–17 run before phase 2: a process that has run the kernel
 phase's torch.profiler traces planned and solved more slowly after them
 (PERF.md §6).  With ``--profile`` it then plans once more under torch.profiler,
 solves the B = 4096 batch once more under it and plans the mesh scene once
@@ -122,10 +144,6 @@ D_ATOL, D_RTOL = 2e-4, 1e-4
 T_AGREE, T_SHARE = 1e-4, 0.99
 G_ATOL = 1e-3
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-
 # demo 1 (isdf_tpu/demos.py:31-59 _COMMON and :80-89): RoundedCone posed by
 # roll 120°; demo 1's own CappedCone.pcd is not in the repo, so its
 # procedural map4 ("random floating blocks (demo1's map)") stands in
@@ -148,6 +166,10 @@ DEMO1 = dict(
 )
 START, GOAL = (2.0, 2.0, 2.0), (45.0, 45.0, 3.0)
 MAX_ITERS = 200     # back-end iteration cap for the smoke run
+# LMBM's re-solve of demo 1's back end (phase 9) stalls from its first
+# iteration (ROADMAP §C1): capped at 50 iterations, not MAX_ITERS, to keep
+# the smoke's time (uncapped it runs 153 iterations, ~57 s on the H100)
+LMBM_DEMO1_ITERS = 50
 
 
 class SmokeFailure(Exception):
@@ -170,147 +192,14 @@ def check_kernel(cond: bool, what: str) -> None:
         KERNEL_FAILURES.append(what)
 
 
-# ---------------------------------------------------------------------------
-# K1 operation count, per query point, read off isdf_torch/csrc/sweep_warm.cu:
-# every FP32 add/sub/mul/div/sqrt/rsqrt/min/max/abs is one operation (an FMA
-# two), compares and selects are free.
-OPS_PVAJ = 3 + 3 * (10 + 8 + 6)      # local time + Horner pos/vel/acc, 3 axes
-OPS_POSE = 50                        # quadrotor tilt → R (pose_at)
-OPS_REL = 18                         # Rᵀ(p − x)
-OPS_CAND = 4                         # t + w·off, clip to [0, total]
-OPS_PLATEAU = 22                     # min, tie band, run mean, window shrink
-OPS_POSED = 18                       # poly_params pose transform
-# body SDFs by kind id (isdf_torch/shapes/spec.py), counted from the device
-# functions; where a function branches, its cheapest branch (a lower bound);
-# cos, sin, atan2, floor and sqrt count one each
-OPS_SDF = {
-    1: 8,     # Ball: n3 (3 mul, 3 add, sqrt) + sub
-    2: 12,    # RoundedCone
-    3: 49,    # CappedCone
-    4: 12,    # Torus: two n2 (5) + 2 sub
-    5: 17,    # Cappedtorus: abs, 2 compare products, 3 (linear branch), psq 5,
-              #   6 for the root
-    6: 62,    # WireframeBox: 18 for ps/q, 3 × 14 for g, 2 min
-    7: 44,    # BendLinear: t 11, ease 2 (first branch), shift 6, capsule 25
-    8: 29,    # TwistBox: k·z, cos, sin, rotation 6, box 20
-    9: 29,    # BendBox
-    10: 49,   # Table: 2 abs, 6 sub, 2 boxes, min
-    11: 83,   # Blobby: 4 balls (11) + 3 smooth unions (13)
-    12: 47,   # Trefoil
-    13: 41,   # SmoothDifference/SmoothIntersection: box 20, ball 8, blend 13
-    14: 51,   # CSG: ball 8, box 20, 3 cylinders (6), 2 min, 2 max, neg
-    15: 20,   # Box
-    16: 7,    # Point
-}
+def http_get(url: str) -> bytes:
+    """GET from the live view on 127.0.0.1, past any proxy the environment
+    names."""
+    import urllib.request
 
-
-# The planar (SE(2)) chain of pose_chain.cuh's pose_at(PlanarArgs): the local
-# time (3) and the position Horner of the three axes alone (10 each, no
-# velocity or acceleration); the pose is x = (p0, p1, z_ref) and R = Rz(p2):
-# cos and sin count one operation each, as in OPS_SDF, and −sin one more;
-# Rᵀ(p − x) without Rz's zeros and ones: 3 differences, 2 × (2 products + 1
-# sum), the z row a copy.
-OPS_PVAJ_PLANAR = 3 + 3 * 10
-OPS_POSE_PLANAR = 3
-OPS_REL_PLANAR = 3 + 2 * 3
-
-
-def chain_ops(planar: bool):
-    """(pvaj, pose, rel) operations of one pose-chain evaluation under the
-    planar or the tilt map."""
-    if planar:
-        return OPS_PVAJ_PLANAR, OPS_POSE_PLANAR, OPS_REL_PLANAR
-    return OPS_PVAJ, OPS_POSE, OPS_REL
-
-
-def is_planar(params) -> bool:
-    from isdf_torch.core.flatness import PlanarPose
-
-    return isinstance(params, PlanarPose)
-
-
-def sdf_ops(shape) -> int:
-    return OPS_SDF[shape.spec.kind] + (OPS_POSED if shape.spec.posed else 0)
-
-
-def k1_ops_per_query(shape, coarse_n: int, rounds: int, k: int = 8,
-                     planar: bool = False) -> int:
-    pvaj, pose, rel = chain_ops(planar)
-    sdf = sdf_ops(shape)
-    scan = coarse_n * (rel + sdf)
-    zooms = 2 * rounds * (k * (OPS_CAND + pvaj + pose + rel + sdf)
-                          + OPS_PLATEAU)
-    epilogue = pvaj + pose + rel + 4 * sdf      # dual: value + 3
-    return scan + zooms + epilogue + 3
-
-
-def k4_ops_per_query(shape, rounds: int, k: int = 8,
-                     planar: bool = False) -> int:
-    pvaj, pose, rel = chain_ops(planar)
-    return rounds * (k * (OPS_CAND + pvaj + pose + rel + sdf_ops(shape))
-                     + OPS_PLATEAU)
-
-
-def bound_ms(ops: int, nbytes: int):
-    """(bound ms, "operations" or "bytes", ops, bytes): the larger of the
-    FP32 work over the FP32 non-tensor peak and the bytes (each input read
-    once, each output written once) over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
-
-
-def k1_bound_ms(shape, P: int, N: int, coarse_n: int, rounds: int,
-                B: int = 1, planar: bool = False):
-    """K1's bound, and K2's with B scenarios: the same work per query, and
-    every scenario's own pose table and piece tables read once."""
-    ops = B * P * k1_ops_per_query(shape, coarse_n, rounds, planar=planar)
-    nbytes = B * (4 * (P * (3 + 1) + coarse_n * 12 + N * (2 + 18))
-                  + 4 * P * 5)
-    return bound_ms(ops, nbytes)
-
-
-def k4_bound_ms(shape, P: int, N: int, rounds: int, planar: bool = False):
-    return bound_ms(P * k4_ops_per_query(shape, rounds, planar=planar),
-                    4 * (P * (3 + 2) + N * (2 + 18)) + 4 * P)
-
-
-# K3 operation count, per query point, read off isdf_torch/csrc/grid_sweep.cu
-# the same way: a trilinear evaluation is grid coordinates (6), the clamp,
-# corner index and fraction per axis (12), 3 weights and 7 lerps (24), the
-# outside term (over 12, squares 5, root 4) and the sum (1)
-OPS_COORD = 6
-OPS_TRI = 12 + 3 + 21 + 12 + 5 + 4 + 1
-OPS_TRI_GRAD = 33        # corner differences, lerps, masks, slope, 3 × 4
-OPS_PLATEAU4 = 13        # k = 4: min 3, tie band 4, run mean 5, shrink 1
-K3_PRE = 2               # warm pre-zoom rounds
-
-
-def k3_ops(B: int, P: int, coarse_n: int, rounds: int, k: int = 4,
-           planar: bool = False) -> int:
-    """K3's operations for B scenarios of P queries.  The coarse poses are a
-    function of the time alone: once per scenario and coarse time (the
-    clipped time j·step, the piece's pos/vel/acc and the tilt, or the
-    planar chain), as the plain version computes them; per query and coarse
-    time p_rel and the pooled trilinear value."""
-    pvaj, rot, rel = chain_ops(planar)
-    pose = pvaj + rot + rel + OPS_COORD + OPS_TRI
-    per_scenario = coarse_n * (3 + pvaj + rot)
-    scan = coarse_n * (rel + OPS_COORD + OPS_TRI)
-    zooms = (K3_PRE + rounds) * (k * (OPS_CAND + pose) + OPS_PLATEAU4)
-    per_query = scan + zooms + pose + (pose + OPS_TRI_GRAD) + 3
-    return B * (per_scenario + P * per_query)
-
-
-def k3_bound_ms(grid, P: int, N: int, coarse_n: int, rounds: int,
-                B: int = 1, planar: bool = False):
-    """K3's bound: the operations of :func:`k3_ops`; the bytes of the field
-    and its pooled twin read once and of every scenario's points, warm
-    starts, piece tables and results."""
-    ops = k3_ops(B, P, coarse_n, rounds, planar=planar)
-    nbytes = (4 * (grid.field.numel() + grid.pooled.numel())
-              + B * (4 * (P * (3 + 1) + N * (2 + 18)) + 4 * P * 5))
-    return bound_ms(ops, nbytes)
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(url, timeout=10) as r:
+        return r.read()
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +384,7 @@ def hold_k1(shape, params, args, kw, size_name, plain_reps: int = 10):
     """One K1 case against sweep_warm_fused_ref on the card → its record."""
     import torch
     from isdf_torch.sweep import fused_zoom
+    from isdf_torch.utils.flops import is_planar, k1_bound_ms
 
     pts, durs = args[0], args[4]
     what = f"K1 {shape.name}/{size_name}"
@@ -579,6 +469,7 @@ def phase_k2(dev):
     batched solves launch it at → records."""
     import torch
     from isdf_torch.sweep import fused_zoom
+    from isdf_torch.utils.flops import k1_bound_ms
 
     records = []
     for shape_name in ("CappedCone", "CSG", "Trefoil"):
@@ -664,6 +555,7 @@ def phase_k4(dev, slice_case):
     from isdf_torch.shapes import make_shape
     from isdf_torch.sweep import fused_zoom
     from isdf_torch.sweep.fast_eval import sdf_at_time_c
+    from isdf_torch.utils.flops import k4_bound_ms
 
     traj, pts, t_warm = slice_case
     gen = torch.Generator(device="cpu").manual_seed(4)
@@ -744,6 +636,7 @@ def hold_k3(grid, params, args, kw, label, plain_reps: int = 10,
     """One K3 case against its plain version on the card → its record."""
     import torch
     from isdf_torch.sweep import grid_zoom
+    from isdf_torch.utils.flops import is_planar, k3_bound_ms
 
     kern, plain = ((grid_zoom.grid_sweep_warm_fused_batched,
                     grid_zoom.grid_sweep_warm_fused_batched_ref) if batched
@@ -1432,11 +1325,14 @@ def fly_scene(dev) -> dict:
 def phase_fly(dev):
     """fly_closed_loop on the cli's scene, K1's counter set to 0 just before
     the flight and read just after; K1 must launch once per back-end
-    evaluation of every replan, and once per audit sweep that found voxels
-    → its record."""
+    evaluation of every replan, and once per audit sweep that found voxels.
+    A LiveFlightView on 127.0.0.1 (port 0) rides along: one GET of its
+    /state.json after the flight must return the trail, the last plan (64
+    samples) and the metrics; then the view is closed → the record."""
     import torch
     from isdf_torch.plan import fly_closed_loop
     from isdf_torch.sweep import fused_zoom
+    from isdf_torch.viz.live_view import LiveFlightView
 
     scene = fly_scene(dev)
     pm = scene["pm"]
@@ -1450,11 +1346,16 @@ def phase_fly(dev):
         return res
 
     pm.plan = recording
-    fused_zoom.LAUNCHES = 0
-    t0 = time.perf_counter()
-    log = fly_closed_loop(**scene, **FLY_RUN)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    view = LiveFlightView(port=0, quiet=True)
+    try:
+        fused_zoom.LAUNCHES = 0
+        t0 = time.perf_counter()
+        log = fly_closed_loop(**scene, **FLY_RUN, live_view=view)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        state = json.loads(http_get(view.url + "state.json"))
+    finally:
+        view.close()
     launches = fused_zoom.LAUNCHES
     # one launch per back-end evaluation, and one per audit round that found
     # occupied voxels near the trajectory (an audit with none sweeps
@@ -1476,8 +1377,18 @@ def phase_fly(dev):
                back_end_s=[m["back_end_s"] for m in plans],
                final_costs=[m["final_cost"] for m in plans],
                k1_launches=launches, audit_sweeps=launches - evals,
-               wall_s=wall, pose_kernels=pm.pose_kernels is not None)
+               wall_s=wall, pose_kernels=pm.pose_kernels is not None,
+               live_view=dict(trail=len(state["trail"]),
+                              plan=len(state["plan"]),
+                              metrics=state["metrics"]))
     print("fly " + json.dumps(rec), flush=True)
+    check(len(state["trail"]) == len(log.min_body_sdf)
+          and len(state["plan"]) == 64
+          and set(state["metrics"]) == {"t", "speed", "min_body_sdf",
+                                        "replan_wall_s"},
+          f"fly: the live view's state.json holds {len(state['trail'])} "
+          f"trail points, {len(state['plan'])} plan samples, metrics "
+          f"{sorted(state['metrics'])}")
     check(log.reached, f"fly: never reached the goal ({len(log.times)} "
                        f"ticks, last {log.positions[-1].tolist()})")
     check(log.min_sdf > 0.0, f"fly: body SDF {log.min_sdf!r} ≤ 0")
@@ -1603,6 +1514,7 @@ def phase_planar_kernels(dev, planar, obj_path):
     from isdf_torch.shapes import shape_from_config
     from isdf_torch.sweep import fused_zoom
     from isdf_torch.sweep.fast_eval import sdf_at_time_c
+    from isdf_torch.utils.flops import k1_bound_ms, k4_bound_ms
 
     params = PlanarPose(0.0)
     gen = torch.Generator().manual_seed(9)
@@ -1731,8 +1643,9 @@ def phase_planar_kernels(dev, planar, obj_path):
 
 def phase_lmbm(pm, solve1):
     """Demo 1's first back-end solve (the mid end's result, as the plan
-    handed it to backend.optimize) again under method="lmbm" and under
-    "lbfgs", both capped at MAX_ITERS, each followed by the audit of its
+    handed it to backend.optimize) again under method="lmbm", capped at
+    LMBM_DEMO1_ITERS, and "lbfgs", capped at MAX_ITERS, each followed by the
+    audit of its
     trajectory; K1's counter set to 0 just before each solve and read after
     its audit: launches = evaluations + audit sweeps, and the audit clean
     → {run: launches}.  (LMBM makes no serious step on this landscape: its
@@ -1745,13 +1658,13 @@ def phase_lmbm(pm, solve1):
 
     args, kw = solve1
     out = {}
-    for method, dtype in (("lmbm", torch.float32),
-                          ("lbfgs", torch.float32)):
+    for method, dtype, cap in (("lmbm", torch.float32, LMBM_DEMO1_ITERS),
+                               ("lbfgs", torch.float32, MAX_ITERS)):
         label = f"{method} {str(dtype).removeprefix('torch.')}"
         fused_zoom.LAUNCHES = 0
         t0 = time.perf_counter()
         traj, res = backend.optimize(
-            *args, **dict(kw, method=method, max_iters=MAX_ITERS,
+            *args, **dict(kw, method=method, max_iters=cap,
                           monitor=None, dtype=dtype))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1788,6 +1701,9 @@ GOLDEN_CONF = dict(
     safety_hor=0.866, mem_size=16, past=10, relCostTol=1e-16,
     sweep_coarse_samples=128, sweep_refine_rounds=24)
 GOLDEN_ITERS = 80
+# LMBM in float32, printed beside the held solves, not held: capped at 40
+# iterations to keep the smoke's time
+GOLDEN_PRINTED_ITERS = 40
 GOLDEN_F0_RTOL = 1e-4      # the initial cost (tests/test_parity_reference.py)
 GOLDEN_BAND = (0.6, 1.67)  # final cost over the reference's
 GOLDEN_SDF_TOL = 5e-3      # the swept SDF on the reference's optimum
@@ -1799,8 +1715,9 @@ def phase_golden(dev):
     initial cost at the reference's x0 (float32), the swept SDF on the
     reference's own optimum, and 80-iteration solves, final cost within
     GOLDEN_BAND of the reference's and collision-free: L-BFGS in float32,
-    LMBM in float64 (the golden config's dtype); LMBM in float32 is printed
-    beside them, not held → K1 launches of the solves."""
+    LMBM in float64 (the golden config's dtype); LMBM in float32, capped at
+    GOLDEN_PRINTED_ITERS, is printed beside them, not held → K1 launches of
+    the solves."""
     import torch
     from isdf_torch.config import Config
     from isdf_torch.core import flatness as fl
@@ -1861,7 +1778,8 @@ def phase_golden(dev):
             t0 = time.perf_counter()
             traj, res = backend.optimize(
                 shape, conf, head, tail, q0, timemap.tau_to_T(tau0), pts,
-                mask, max_iters=GOLDEN_ITERS, method=method, params=params,
+                mask, max_iters=GOLDEN_ITERS if held else
+                GOLDEN_PRINTED_ITERS, method=method, params=params,
                 device=dev, dtype=dtype)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -2083,6 +2001,398 @@ def phase_run_demo(planar):
     return out
 
 
+# the swept-volume mesh (viz/swept_mesh.py): the resolution the JAX cli
+# takes by default (--mesh-res 0.25) and sdf_volume's chunk
+SWEPT_RES = 0.25
+SWEPT_CHUNK = 65536
+
+
+def write_reference_root(dirpath: str, obj_path: str) -> str:
+    """A stand-in reference checkout for the demos' assets → its root: demo
+    1's map as an ASCII PCD of maps_gen.map4(res=0.8, seed=0) (phase 3's
+    stand-in for CappedCone.pcd) and demo 6's Lthick.obj (the synthetic L
+    of write_l_robot)."""
+    import shutil
+
+    from isdf_torch.world import maps_gen
+
+    pm_dir = os.path.join(dirpath, "reference", "src", "plan_manager")
+    os.makedirs(os.path.join(pm_dir, "map_pcds"))
+    os.makedirs(os.path.join(pm_dir, "shapes"))
+    pts = maps_gen.map4(res=0.8, seed=0)
+    with open(os.path.join(pm_dir, "map_pcds", "CappedCone.pcd"), "w") as f:
+        f.write("# .PCD v0.7\nVERSION 0.7\nFIELDS x y z\nSIZE 4 4 4\n"
+                "TYPE F F F\nCOUNT 1 1 1\n"
+                f"WIDTH {len(pts)}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\n"
+                f"POINTS {len(pts)}\nDATA ascii\n")
+        np.savetxt(f, pts, fmt="%.6f")
+    shutil.copy(obj_path, os.path.join(pm_dir, "shapes", "Lthick.obj"))
+    return os.path.join(dirpath, "reference")
+
+
+def inside_point(torch, shape, dev):
+    """A body-frame point inside the body: the frame's origin where the body
+    holds it (the zoo's shapes), else the baked field's deepest voxel (the
+    L robot's origin lies 0.2 m outside its arms)."""
+    zero = torch.zeros(1, 3, dtype=torch.float32, device=dev)
+    if float(shape.sdf(zero)[0]) < 0.0 or shape.grid is None:
+        return zero[0]
+    g = shape.grid
+    i = int(torch.argmin(g.field))
+    idx = torch.tensor(np.unravel_index(i, tuple(g.dims)), device=dev)
+    origin = torch.as_tensor(g.origin, dtype=torch.float32, device=dev)
+    return origin + idx.to(torch.float32) * g.res
+
+
+def phase_swept(pm, traj, pm_mesh, traj_mesh):
+    """viz.swept_volume_mesh at resolution 0.25 on phase 3's demo-1 plan (K1)
+    and phase 5's mesh plan (K3), the counters set to 0 just before each and
+    read just after: one cold launch per 65,536-voxel chunk, no non-fused
+    sweep, and the C++ marching tetrahedra (never the Python twin).  Then
+    the mesh's quality: the swept SDF at the body's inside point carried
+    along 400 trajectory samples is < 0 (the mesh encloses the path), the
+    re-swept SDF at 1,000 mesh vertices is within the resolution of 0, and
+    sdf_time_curve at the audit's deepest voxel never goes below that
+    voxel's swept SDF by more than 1e-4 → {label: record}."""
+    import torch
+    from isdf_torch import native, viz
+    from isdf_torch.sweep import fused_zoom, grid_zoom, traj_states
+    from isdf_torch.viz import export, swept_mesh
+
+    sweeps = importlib.import_module("isdf_torch.sweep.sweep_sdf")
+    split = {}
+    sdf_volume, tetrahedra = swept_mesh.sdf_volume, native.marching_tetrahedra
+
+    def timed_volume(*a, **k):
+        t0 = time.perf_counter()
+        field = sdf_volume(*a, **k)
+        split.update(voxels=int(field.size),
+                     sdf_volume_s=time.perf_counter() - t0)
+        return field
+
+    def timed_tetrahedra(*a, **k):
+        t0 = time.perf_counter()
+        tris = tetrahedra(*a, **k)
+        split["tetrahedra_s"] = time.perf_counter() - t0
+        return tris
+
+    out = {}
+    swept_mesh.sdf_volume = timed_volume
+    native.marching_tetrahedra = timed_tetrahedra
+    try:
+        for label, man, tr in (("demo 1 RoundedCone", pm, traj),
+                               ("demo 6 L", pm_mesh, traj_mesh)):
+            split.clear()
+            tr = tr.detach()
+            mesh_robot = man.shape.grid is not None
+            swept_mesh.PY_TWIN_CALLS = sweeps.XLA_CALLS = 0
+            fused_zoom.LAUNCHES = grid_zoom.LAUNCHES_GRID = 0
+            t0 = time.perf_counter()
+            tris = viz.swept_volume_mesh(man.shape, tr, man.params,
+                                         resolution=SWEPT_RES,
+                                         device=man.device)
+            wall = time.perf_counter() - t0
+            counts = dict(k1=fused_zoom.LAUNCHES,
+                          k3=grid_zoom.LAUNCHES_GRID,
+                          non_fused=sweeps.XLA_CALLS,
+                          python_twin=swept_mesh.PY_TWIN_CALLS)
+            chunks = -(-split["voxels"] // SWEPT_CHUNK)
+            launches = counts["k3" if mesh_robot else "k1"]
+
+            dur = tr.durations
+            with torch.no_grad():
+                ts = torch.linspace(0.0, float(tr.total_duration), 400,
+                                    dtype=dur.dtype, device=dur.device)
+                xs, Rs = traj_states(tr, man.params, ts)
+                body = inside_point(torch, man.shape, dur.device)
+                path = (xs + Rs @ body).contiguous()
+                on_path = sweeps.sweep_sdf(man.shape, tr, man.params,
+                                           path, device=man.device)[0]
+                V = torch.as_tensor(tris.reshape(-1, 3), dtype=dur.dtype,
+                                    device=dur.device)
+                pick = torch.linspace(0, len(V) - 1, 1000).long()
+                on_mesh = sweeps.sweep_sdf(man.shape, tr, man.params,
+                                           V[pick].contiguous(),
+                                           device=man.device)[0]
+                body_sdf = float(man.shape.sdf(body[None])[0])
+            live, sdf, _ = man._audit_sdf(tr)
+            i = int(np.argmin(sdf))
+            _, curve = export.sdf_time_curve(man.shape, tr, man.params,
+                                             live[i])
+            rec = dict(case=label, resolution=SWEPT_RES,
+                       voxels=split["voxels"], chunks=chunks,
+                       launches=launches, **counts,
+                       sdf_volume_s=split["sdf_volume_s"],
+                       tetrahedra_s=split["tetrahedra_s"], wall_s=wall,
+                       triangles=int(len(tris)), inside_point_sdf=body_sdf,
+                       cpp_core=native.get_lib() is not None
+                       and counts["python_twin"] == 0,
+                       path_max_sdf=float(on_path.max()),
+                       vertex_max_abs_sdf=float(on_mesh.abs().max()),
+                       curve_min=float(curve.min()),
+                       audit_voxel_sdf=float(sdf[i]))
+            print("swept " + json.dumps(rec), flush=True)
+            check(launches == chunks,
+                  f"swept {label}: {launches} launches for {chunks} chunks")
+            check(counts["k1" if mesh_robot else "k3"] == 0
+                  and counts["non_fused"] == 0,
+                  f"swept {label}: other sweeps ran: {counts}")
+            check(rec["cpp_core"],
+                  f"swept {label}: the marching tetrahedra ran in Python")
+            check(len(tris) > 0 and np.isfinite(tris).all(),
+                  f"swept {label}: {len(tris)} triangles")
+            check(body_sdf < 0.0 and rec["path_max_sdf"] < 0.0,
+                  f"swept {label}: the path leaves the swept volume "
+                  f"(max SDF {rec['path_max_sdf']!r})")
+            check(rec["vertex_max_abs_sdf"] <= SWEPT_RES,
+                  f"swept {label}: a mesh vertex lies "
+                  f"{rec['vertex_max_abs_sdf']!r} off the swept surface")
+            check(rec["curve_min"] >= rec["audit_voxel_sdf"] - 1e-4,
+                  f"swept {label}: SDF(t) dips to {rec['curve_min']!r} "
+                  f"below the swept SDF {rec['audit_voxel_sdf']!r}")
+            out[label] = rec
+    finally:
+        swept_mesh.sdf_volume = sdf_volume
+        native.marching_tetrahedra = tetrahedra
+    return out
+
+
+def phase_monitor_demo(workdir: str, dev) -> int:
+    """demos.run_demo(1) with an OptiMonitor, as `cli demo 1 --monitor` runs
+    it, K1's counter set to 0 just before and read just after; then the
+    monitor's artifacts export_replay_csv and export_kernel_obj.  The cost
+    curve's PNG needs matplotlib, which the card's machine lacks: it is not
+    drawn here (tests/test_torch_cli.py draws it on the CPU) → K1
+    launches."""
+    import torch
+    from isdf_torch import demos
+    from isdf_torch.sweep import fused_zoom
+    from isdf_torch.utils.monitor import (OptiMonitor, export_kernel_obj,
+                                          export_replay_csv)
+
+    mon = OptiMonitor()
+    fused_zoom.LAUNCHES = 0
+    t0 = time.perf_counter()
+    pm1, res = demos.run_demo(1, max_iters=MAX_ITERS, monitor=mon,
+                              device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_zoom.LAUNCHES
+    check(res.success, "monitor demo: run_demo(1) failed")
+    replay = export_replay_csv(os.path.join(workdir, "replay.csv"), res.traj,
+                               pm1.params)
+    kernel = export_kernel_obj(os.path.join(workdir, "pose_kernel.obj"),
+                               pm1.pose_kernels,
+                               resolution=pm1.conf.occupancy_resolution)
+    rows = np.loadtxt(replay, delimiter=",", skiprows=1)
+    with open(kernel) as f:
+        cubes = sum(line.startswith("v ") for line in f) // 8
+    rec = dict(wall_s=wall, final_cost=res.metrics["final_cost"],
+               breakdowns=len(mon.total), solves=mon.solves,
+               replay_rows=int(len(rows)), kernel_voxels=cubes,
+               k1_launches=launches)
+    print("monitor demo " + json.dumps(rec), flush=True)
+    print("monitor demo: cost_curve.png skipped (matplotlib is not "
+          "installed on the card's machine)", flush=True)
+    check(len(mon.total) >= 1 and launches > 0,
+          f"monitor demo: {len(mon.total)} breakdowns, {launches} launches")
+    check(rows.shape[1] == 8 and np.isfinite(rows).all() and cubes > 0,
+          f"monitor demo: replay {rows.shape}, {cubes} kernel voxels")
+    return launches
+
+
+# the depth render on the card (float32) against the CPU (float64): a ray
+# stops advancing once the ESDF at its tip is ≤ render_depth's hit_eps
+# (1e-2 m); where the two precisions fall on either side of it, one more
+# step of about hit_eps separates their depths, plus float32 rounding along
+# the ray (measured: 0.010008 m)
+DEPTH_ATOL = 1e-2 + 1e-4
+
+
+def phase_sim(pm, dev):
+    """sim/ and goals on the card: render_depth at 640 × 480 (90° field of
+    view, 96 steps) over the ESDF of phase 3's map, held against the same
+    render on the CPU in float64 (hit masks equal on ≥ 99.5 % of the
+    pixels, depth within DEPTH_ATOL where both hit); a 1,000-step closed loop
+    of so3_control → force_moments_to_rpm → step holding a hover within
+    1e-3 m; sample_free_goals on the card equal to the CPU's → record."""
+    from dataclasses import replace
+
+    import torch
+    from isdf_torch import sim
+    from isdf_torch.plan import sample_free_goals
+    from isdf_torch.sim.quadrotor import force_moments_to_rpm
+
+    gm = pm.gridmap.with_esdf()
+    gm_cpu = replace(gm.cpu(), esdf=gm.esdf.double().cpu())
+    cam = sim.CameraIntrinsics.from_fov(640, 480, 90.0)
+    # from the map's west edge, level, looking east across the blocks
+    # (camera z forward, x right, y down: columns −y, −z, +x of the world)
+    pos = np.array([2.0, 25.0, 7.0])
+    R = np.stack([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]],
+                 axis=1)
+    depth = sim.render_depth(gm, cam, pos, R)
+    ms = cuda_ms(lambda: sim.render_depth(gm, cam, pos, R), warmup=1,
+                 reps=5)
+    ref = sim.render_depth(gm_cpu, cam, pos, R).numpy()
+    d = depth.double().cpu().numpy()
+    hit, hit_ref = d < 20.0, ref < 20.0
+    both = hit & hit_ref
+    agree = float((hit == hit_ref).mean())
+    diff = np.abs(d - ref)[both]
+    err = float(diff.max()) if both.any() else 0.0
+
+    p = sim.QuadrotorParams()
+    hover = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64, device=dev)
+    s = sim.QuadState.hover(p, pos=hover, device=dev)
+    zero = torch.zeros(3, dtype=torch.float64, device=dev)
+    worst = torch.zeros((), dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        thrust, M = sim.so3_control(s.pos, s.vel, s.R, s.omega, hover, zero,
+                                    zero, 0.0, p.mass, p.g,
+                                    inertia=p.inertia)
+        s = sim.quad_step(s, force_moments_to_rpm(thrust, M, p), p, dt=0.01)
+        worst = torch.maximum(worst, torch.linalg.norm(s.pos - hover))
+    worst = float(worst)
+    loop_s = time.perf_counter() - t0
+
+    goals_card = sample_free_goals(gm, 16, seed=0)
+    goals_cpu = sample_free_goals(gm_cpu, 16, seed=0)
+    rec = dict(depth_ms=ms, pixels=cam.width * cam.height,
+               hit_share=float(hit.mean()), hit_agree=agree,
+               max_depth_err=err,
+               depth_err_over_1cm=int((diff > 1e-2).sum()),
+               hover_steps=1000,
+               hover_max_drift_m=worst, hover_loop_s=loop_s,
+               goals_equal=bool(np.array_equal(goals_card, goals_cpu)))
+    print("sim " + json.dumps(rec), flush=True)
+    check(hit.any(), "sim: the depth render hit nothing")
+    check(agree >= 0.995, f"sim: hit masks agree on {agree:.4f} of pixels")
+    check(err <= DEPTH_ATOL,
+          f"sim: depth differs by {err!r} m from the CPU's")
+    check(worst <= 1e-3, f"sim: the hover drifted {worst:.3g} m")
+    check(rec["goals_equal"], "sim: sample_free_goals differs from the CPU")
+    return rec
+
+
+# the cli as a user runs it (isdf_tpu/cli.py's flags), each run in its own
+# process on the card
+CLI_RUNS = (
+    ("demo 1", ["demo", "1", "--iters", "200", "--swept-mesh", "--view"]),
+    ("demo 6", ["demo", "6", "--iters", "200", "--swept-mesh", "--view"]),
+    ("demo 8", ["demo", "8"]),
+    ("closed-loop", ["closed-loop", "--max-time", "9"]),
+)
+SCENE_LAYERS = ["map voxels", "A* path", "trajectory", "poses",
+                "swept volume"]
+
+
+def phase_cli(ref_root: str, workdir: str) -> dict:
+    """`python3 -m isdf_torch.cli` as a user runs it, with the stand-in
+    reference checkout as $ISDF_REFERENCE_ROOT: each run must exit 0 and
+    write the files the JAX package's cli writes for its flags →
+    {label: record}."""
+    import re
+
+    from isdf_torch.shapes.mesh import load_obj
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, ISDF_REFERENCE_ROOT=ref_root)
+    out = {}
+    for label, args in CLI_RUNS:
+        dest = os.path.join(workdir, "cli", label.replace(" ", "_"))
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "isdf_torch.cli", *args, "--out",
+                 dest], cwd=here, env=env, capture_output=True, text=True,
+                timeout=300)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"cli {label}: no exit within 300 s")
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"cli {label}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(os.path.join(dest, "metrics.json")) as f:
+            m = json.load(f)
+        rec = dict(run=label, args=args, rc=proc.returncode, wall_s=wall,
+                   files=sorted(os.listdir(dest)))
+        if label == "closed-loop":
+            rec.update({k: m[k] for k in ("reached", "replans",
+                                          "min_body_sdf", "replan_p50_s")})
+            check(m["reached"] and m["min_body_sdf"] > 0.0,
+                  f"cli {label}: {m}")
+            check("flight.csv" in rec["files"], f"cli {label}: no flight.csv")
+        else:
+            rec.update(success=m["success"],
+                       min_swept_sdf=m.get("min_swept_sdf"),
+                       final_cost=m.get("final_cost"),
+                       plan_wall_s=m["wall_s"])
+            check(m["success"] and m.get("min_swept_sdf", -1.0) > 0.0,
+                  f"cli {label}: success {m['success']}, min swept SDF "
+                  f"{m.get('min_swept_sdf')!r}")
+        if "--swept-mesh" in args:
+            V, F = load_obj(os.path.join(dest, "swept_volume.obj"))
+            with open(os.path.join(dest, "scene.html")) as f:
+                data = json.loads(re.search(r"const DATA = (\{.*?\});\n",
+                                            f.read(), re.S).group(1))
+            layers = [L["name"] for L in data["layers"]]
+            rec.update(triangles=int(len(F)), scene_layers=layers)
+            check(len(F) > 0 and len(V) == 3 * len(F)
+                  and m["swept_mesh_tris"] == len(F),
+                  f"cli {label}: swept_volume.obj has {len(V)} vertices, "
+                  f"{len(F)} triangles")
+            check(layers == SCENE_LAYERS, f"cli {label}: layers {layers}")
+            check({"trajectory.csv", "astar_path.csv"} <= set(rec["files"]),
+                  f"cli {label}: files {rec['files']}")
+        print("cli " + json.dumps(rec), flush=True)
+        out[label] = rec
+    return out
+
+
+def phase_volume_kernels(dev, pm, traj, pm_mesh, traj_mesh):
+    """K1 and K3 at the swept-volume mesh's launch, after the profiler
+    traces: the first 65,536-voxel chunk of demo 1's volume (RoundedCone
+    posed, cold, coarse 128, rounds 24, one lane a point) and of demo 6's
+    (the L field, cold), each against its plain version: t* and d* bitwise
+    (K3 also the gradient), K1's gradient in its band → records.  Demo 6's
+    volume holds fewer voxels than a chunk (its one launch is that size);
+    its case extends the same 0.25 m lattice along x, past the goal, to
+    65,536 points."""
+    import torch
+    from isdf_torch.viz import swept_mesh
+
+    recs = {}
+    kw = dict(coarse_n=128, rounds=24, warm_window=0.3)
+    for label, man, tr in (("K1", pm, traj), ("K3", pm_mesh, traj_mesh)):
+        tr = tr.detach()
+        origin, size = swept_mesh._auto_bounds(tr, man.shape, SWEPT_RES)
+        if math.prod(size) < SWEPT_CHUNK:
+            size = (-(-SWEPT_CHUNK // (size[1] * size[2])),) + size[1:]
+        pts = torch.as_tensor(
+            swept_mesh.grid_points(origin, size, SWEPT_RES)[:SWEPT_CHUNK],
+            dtype=torch.float32, device=dev).contiguous()
+        cold = torch.zeros_like(pts[:, 0])
+        if label == "K1":
+            args = kernel_inputs(torch, tr, man.params, pts, cold, 128)
+            rec = hold_k1(man.shape, man.params, args, kw, "volume65536",
+                          plain_reps=3)
+            exact = rec["t_equal"] == 1.0 and rec["d_equal"] == 1.0
+        else:
+            durs = tr.durations.contiguous()
+            args = (pts, cold, (torch.cumsum(durs, 0) - durs).contiguous(),
+                    durs, tr.coeffs.contiguous())
+            rec = hold_k3(man.shape.grid, man.params, args, kw,
+                          "L/volume65536", plain_reps=3)
+            exact = (rec["t_equal"] == 1.0 and rec["d_equal"] == 1.0
+                     and rec["grad_equal"] == 1.0)
+        check_kernel(exact, f"{label} volume65536: not bitwise equal to its "
+                            f"plain version ({rec})")
+        recs[label] = rec
+    return recs
+
+
 def kernel_line(name, replaces, launches, max_abs_err, rec, pose, paths,
                 source="isdf_torch/csrc/sweep_warm.cu"):
     """One kernel and pose map of the kernels line: ``launches`` the sum of
@@ -2128,6 +2438,9 @@ def main() -> int:
             label: [list(r) for r in fused_zoom.ptxas_report(lib)]
             for label, lib in libs.items()}), flush=True)
         obj_path = write_l_robot(workdir.name)
+        # the demos' assets: read by isdf_torch.demos when it is imported
+        ref_root = write_reference_root(workdir.name, obj_path)
+        os.environ["ISDF_REFERENCE_ROOT"] = ref_root
         # the timed paths first, the kernel phase's profiler traces after
         plan_m, k1_launches, pm, traj, solve1 = phase_plan(dev)
         k4_launches = phase_refine(pm, traj)
@@ -2142,11 +2455,16 @@ def main() -> int:
         k1_monitor = phase_monitor(pm, plan_m, solve1)
         phase_non_fused(pm, traj, pm_mesh, traj_mesh, obj_path)
         k1_demos = phase_run_demo(planar)
+        swept = phase_swept(pm, traj, pm_mesh, traj_mesh)
+        k1_monitor_demo = phase_monitor_demo(workdir.name, dev)
+        phase_sim(pm, dev)
+        phase_cli(ref_root, workdir.name)
         k1_recs, slice_case = phase_kernels(dev)
         k2_recs = phase_k2(dev)
         k4_recs = phase_k4(dev, slice_case)
         k3_recs = phase_k3(dev, obj_path)
         planar_recs = phase_planar_kernels(dev, planar, obj_path)
+        volume_recs = phase_volume_kernels(dev, pm, traj, pm_mesh, traj_mesh)
         check(not KERNEL_FAILURES, "; ".join(KERNEL_FAILURES))
         if "--profile" in sys.argv[1:]:
             phase_profile(pm, batch_case, pm_mesh, planar, dev)
@@ -2176,15 +2494,19 @@ def main() -> int:
                 **{f"backend.optimize {k} demo 1": v
                    for k, v in k1_lmbm.items()},
                 "backend.optimize reference goldens": k1_golden,
-                "PlannerManager.plan(monitor=) demo 1": k1_monitor}
+                "PlannerManager.plan(monitor=) demo 1": k1_monitor,
+                "run_demo(1, monitor=)": k1_monitor_demo,
+                "swept_mesh": swept["demo 1 RoundedCone"]["launches"]}
+    k3_paths = {"PlannerManager.plan demo 6": k3_launches,
+                "swept_mesh": swept["demo 6 L"]["launches"]}
     k1p_paths = {**{f"plan_planar {k}": v["k1_launches"]
                     for k, v in planar.items()},
                  **{f"run_demo({k})": v for k, v in k1_demos.items()}}
     kernels = [
         kernel_line("sweep_warm_fused", "isdf_tpu/sweep/pallas_zoom.py:419",
                     sum(k1_paths.values()),
-                    max(r["max_abs_d"] for r in k1_recs), k1_main, "flat",
-                    k1_paths),
+                    max(r["max_abs_d"] for r in k1_recs
+                        + [volume_recs["K1"]]), k1_main, "flat", k1_paths),
         kernel_line("sweep_warm_fused", "isdf_tpu/sweep/pallas_zoom.py:419",
                     sum(k1p_paths.values()),
                     max(r["max_abs_d"] for r in planar_recs["K1"]),
@@ -2205,9 +2527,10 @@ def main() -> int:
                     planar_recs["K4"][0], "planar",
                     {"zoom_refine": planar_paths["K4"]}),
         kernel_line("grid_sweep_warm_fused",
-                    "isdf_tpu/sweep/pallas_grid_zoom.py:314", k3_launches,
-                    max(r["max_abs_d"] for r in k3_recs), k3_main, "flat",
-                    {"PlannerManager.plan demo 6": k3_launches},
+                    "isdf_tpu/sweep/pallas_grid_zoom.py:314",
+                    sum(k3_paths.values()),
+                    max(r["max_abs_d"] for r in k3_recs
+                        + [volume_recs["K3"]]), k3_main, "flat", k3_paths,
                     source="isdf_torch/csrc/grid_sweep.cu"),
         kernel_line("grid_sweep_warm_fused",
                     "isdf_tpu/sweep/pallas_grid_zoom.py:314",

@@ -1,10 +1,13 @@
-"""ctypes loader for the A* core in ``native/astar.cpp`` (the C++ twin of
-the Python search loop in search/astar.py).
+"""ctypes loader for the native C++ core (counterpart of
+``isdf_tpu/native.py``): A* in ``native/astar.cpp`` and marching tetrahedra
+in ``native/marching_cubes.cpp``.
 
-The library is compiled with the host C++ compiler at first use into
-``isdf_torch/_build/``.  A* is a host algorithm in both packages: where no
-compiler is present, ``astar_native`` returns None and the caller runs the
-Python twin.
+Both sources are compiled into one library with the host C++ compiler at
+first use, into ``isdf_torch/_build/``, named by the sources' hash; nothing
+is written into ``native/``.  Both are host algorithms in both packages:
+where no compiler is present, ``get_lib`` returns None, ``astar_native``
+and ``marching_tetrahedra`` return None, and the caller runs its Python
+twin (search/astar.py, viz/swept_mesh.py).
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ from typing import Optional
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG.parent / "native" / "astar.cpp"
+_PKG = Path(__file__).resolve().parent
+SOURCES = (_PKG.parent / "native" / "astar.cpp",
+           _PKG.parent / "native" / "marching_cubes.cpp")
 BUILD_DIR = _PKG / "_build"
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -29,10 +33,12 @@ _tried = False
 
 def _build() -> Optional[Path]:
     cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
-    if cxx is None or not SOURCE.exists():
+    if cxx is None or not all(s.exists() for s in SOURCES):
         return None
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"astar_{tag}.so"
+    h = hashlib.sha1()
+    for s in SOURCES:
+        h.update(s.read_bytes())
+    out = BUILD_DIR / f"native_{h.hexdigest()[:12]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -41,7 +47,7 @@ def _build() -> Optional[Path]:
     try:
         proc = subprocess.run(
             [cxx, "-O3", "-std=c++17", "-fPIC", "-shared", "-o", tmp,
-             str(SOURCE)], capture_output=True, timeout=300)
+             *map(str, SOURCES)], capture_output=True, timeout=300)
         if proc.returncode != 0:
             return None
         os.replace(tmp, out)
@@ -70,6 +76,13 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ctypes.c_long,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ctypes.c_int, ctypes.POINTER(ctypes.c_long),
+    ]
+    lib.isdf_marching_tetrahedra.restype = ctypes.c_long
+    lib.isdf_marching_tetrahedra.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        ctypes.c_double, ctypes.POINTER(ctypes.c_double), ctypes.c_long,
     ]
     _lib = lib
     return _lib
@@ -108,3 +121,26 @@ def astar_native(occ: np.ndarray, feas: Optional[np.ndarray], start_idx,
     if L <= 0:
         return None if L < 0 else (None, None, expanded.value)
     return out_path[:L].copy(), out_poses[:L].copy(), expanded.value
+
+
+def marching_tetrahedra(field: np.ndarray, origin, resolution: float,
+                        iso: float = 0.0) -> Optional[np.ndarray]:
+    """Triangle soup (T, 3, 3) of the iso-surface of a float64 (X, Y, Z)
+    field on the grid origin + resolution·index, or None if the library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    f = np.ascontiguousarray(field.astype(np.float64))
+    X, Y, Z = f.shape
+    max_tris = max(4 * X * Y * Z, 1 << 16)
+    out = np.zeros((max_tris, 9), dtype=np.float64)
+    n = lib.isdf_marching_tetrahedra(
+        f.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), X, Y, Z,
+        float(origin[0]), float(origin[1]), float(origin[2]),
+        float(resolution), float(iso),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), max_tris,
+    )
+    if n < 0:
+        return None
+    return out[:n].reshape(n, 3, 3)

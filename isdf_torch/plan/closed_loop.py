@@ -80,13 +80,12 @@ def fly_closed_loop(pm: PlannerManager, static_points: np.ndarray,
 
     obstacle_controls(i, t, rng) → (acc, yaw_rate) per obstacle; by default
     random accelerations, as the reference's obstacle node draws them.  The
-    planner runs on ``pm.device``.  ``live_view`` (the browser view of the
-    JAX package) waits for the port of viz: passing one raises.  → a
-    FlightLog with the audit at the ticks flown and the wall time of each
-    replan and of each map set-up."""
-    if live_view is not None:
-        raise NotImplementedError("live_view needs isdf_torch's viz, which "
-                                  "is not ported yet")
+    planner runs on ``pm.device``.  live_view: optional
+    viz.live_view.LiveFlightView — streams the map, the latest plan and the
+    flown pose trail to the browser while flying (the odom_visualization /
+    rviz role); it reads host arrays after each replan and changes nothing
+    the flight computes.  → a FlightLog with the audit at the ticks flown
+    and the wall time of each replan and of each map set-up."""
     rng = rng or np.random.default_rng(0)
     if obstacle_controls is None:
         def obstacle_controls(i, t, rng):
@@ -119,6 +118,8 @@ def fly_closed_loop(pm: PlannerManager, static_points: np.ndarray,
         if pm.device.type == "cuda":
             torch.cuda.synchronize(pm.device)
         log.setup_wall_s.append(time.perf_counter() - t0)
+        if live_view is not None:
+            live_view.set_scene(points=pts, goal=goal)
 
         # 2. replan from the commanded state
         t0 = time.perf_counter()
@@ -142,6 +143,21 @@ def fly_closed_loop(pm: PlannerManager, static_points: np.ndarray,
         # the audit at a thinned set of the ticks flown
         for k in range(0, n_cmd, max(n_cmd // 10, 1)):
             log.min_body_sdf.append(_min_body_sdf(pm, p_np[k], occ))
+        if live_view is not None:
+            traj = res.traj.detach()
+            dur = traj.durations
+            with torch.no_grad():
+                plan_xyz = traj.pos(torch.linspace(
+                    0.0, float(traj.total_duration), 64, dtype=dur.dtype,
+                    device=dur.device)).cpu().numpy()
+            live_view.set_plan(plan_xyz)
+            for k in range(0, n_cmd, max(n_cmd // 10, 1)):
+                live_view.update(
+                    t + (k + 1) / cmd_rate, p_np[k],
+                    speed=float(np.linalg.norm(v_np[k])),
+                    min_body_sdf=float(log.min_body_sdf[-1]),
+                    replan_wall_s=float(log.replan_wall_s[-1]),
+                )
         pos, vel, acc = p_np[-1].copy(), v_np[-1].copy(), a_np[-1].copy()
         t += replan_dt
 

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
-from isdf_torch.search import native
+from isdf_torch import native
 from isdf_torch.search.pose_kernels import nearest_feasible_pose
 
 _SQRT2, _SQRT3 = math.sqrt(2.0), math.sqrt(3.0)

@@ -53,11 +53,20 @@ class GridMap:
                        origin=torch.as_tensor(origin, device=device),
                        resolution=float(resolution))
 
+    @property
+    def shape(self):
+        return tuple(self.occ.shape)
+
     def world_to_index(self, p: torch.Tensor) -> torch.Tensor:
         return torch.floor((p - self.origin) / self.resolution).to(torch.int64)
 
-    def index_to_world(self, idx: torch.Tensor) -> torch.Tensor:
-        """Voxel center (ref GridMap3D.h getGridCubeCenter)."""
+    def index_to_world(self, idx):
+        """Voxel center (ref GridMap3D.h getGridCubeCenter) of indices
+        (..., 3): a tensor gives a tensor on the map's device, a numpy
+        array a numpy array."""
+        if isinstance(idx, np.ndarray):
+            origin = self.origin.cpu().numpy()
+            return origin + (idx.astype(origin.dtype) + 0.5) * self.resolution
         return self.origin + (idx.to(self.origin.dtype) + 0.5) * self.resolution
 
     def is_valid_index(self, idx: torch.Tensor) -> torch.Tensor:
@@ -99,6 +108,9 @@ class GridMap:
             q = p.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(self.sdf_value(q).sum(), q)
         return g
+
+    def sdf_value_grad(self, p: torch.Tensor):
+        return self.sdf_value(p), self.sdf_grad(p)
 
     def cpu(self) -> "GridMap":
         """The same map on the host (the numpy-only obstacle gather reads it

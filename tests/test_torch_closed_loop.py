@@ -296,7 +296,38 @@ def test_min_body_sdf_matches_jax_audit():
 
 
 def test_live_view_waits_for_viz():
-    pm = PlannerManager(Config(**FLY), shape_name="Ball", device="cpu")
-    with pytest.raises(NotImplementedError, match="viz"):
-        fly_closed_loop(pm, _static(), [], FLY_START, FLY_GOAL,
-                        live_view=object())
+    """The view that waited for the port of viz: the flight streams to it
+    what JAX's streams (the scene, a 64-sample plan, the audited ticks with
+    their metrics) and flies exactly as without it."""
+    from isdf_torch.viz.live_view import LiveFlightView
+
+    def fly(view):
+        pm = PlannerManager(Config(**FLY), shape_name="Ball", device="cpu")
+        obstacles = [moving.MovingObstacle(pos=np.array([9.0, 7.0]),
+                                           radius=0.4, height=3.0)]
+        return fly_closed_loop(pm, _static(), obstacles, FLY_START, FLY_GOAL,
+                               replan_dt=1.5, max_time=1.5, max_iters=6,
+                               goal_tol=1.0, rng=np.random.default_rng(0),
+                               live_view=view)
+
+    plain = fly(None)
+    view = LiveFlightView(quiet=True)
+    try:
+        log = fly(view)
+        scene, state = view._scene, view._state
+    finally:
+        view.close()
+    assert len(log.replan_wall_s) == len(plain.replan_wall_s) == 1
+    np.testing.assert_array_equal(np.asarray(log.positions),
+                                  np.asarray(plain.positions))
+    assert log.min_body_sdf == plain.min_body_sdf
+    assert scene["goal"] == FLY_GOAL.tolist() and len(scene["points"]) > 0
+    assert len(state["plan"]) == 64
+    # 10 audited ticks a replan, each streamed with its metrics
+    assert len(state["trail"]) == len(log.min_body_sdf) == 10
+    # the last audited tick: k = 135 of the replan's 150
+    assert state["trail"][-1] == [round(float(v), 3)
+                                  for v in log.positions[-15]]
+    assert set(state["metrics"]) == {"t", "speed", "min_body_sdf",
+                                     "replan_wall_s"}
+    assert state["metrics"]["replan_wall_s"] == log.replan_wall_s[-1]

@@ -863,3 +863,80 @@ def test_shape_without_device_sdf_sweeps_on_the_card():
     with pytest.raises(NotImplementedError, match="HandBuilt"):
         fused_zoom.sweep_warm_fused(bare, params, pts, tw, pose, starts, durs,
                                     coeffs)
+
+
+# ---------------------------------------------------------------------------
+# the swept-volume mesh's launches: one 65,536-point chunk of a dense grid,
+# cold (viz/swept_mesh.sdf_volume → sweep_sdf)
+
+def _volume_chunk(dev, N=12, P=65536, seed=0):
+    """A 12-piece trajectory and the first P voxels of a 0.25 m grid around
+    it, as sdf_volume sweeps them (t_warm = 0)."""
+    rng = np.random.default_rng(seed)
+    start, goal = np.array([2.0, 2.0, 2.0]), np.array([20.0, 14.0, 4.0])
+    q = (np.linspace(start, goal, N + 1)[1:-1]
+         + rng.normal(scale=0.5, size=(N - 1, 3)))
+    T = torch.as_tensor(rng.uniform(1.0, 1.6, size=N), dtype=F32, device=dev)
+    head = torch.zeros(3, 3, dtype=F32, device=dev)
+    head[:, 0] = torch.as_tensor(start, dtype=F32)
+    tail = torch.zeros(3, 3, dtype=F32, device=dev)
+    tail[:, 0] = torch.as_tensor(goal, dtype=F32)
+    traj = PolyTraj(T, minco.solve(torch.as_tensor(q, dtype=F32, device=dev),
+                                   T, head, tail))
+    axes = [np.arange(lo, hi, 0.25) for lo, hi in zip(start - 2, goal + 2)]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    pts = torch.as_tensor(grid[:P], dtype=F32, device=dev).contiguous()
+    starts = (torch.cumsum(T, 0) - T).contiguous()
+    return traj, pts, starts
+
+
+@pytest.mark.cuda
+def test_swept_volume_chunk_k1_bitwise_on_card():
+    """K1 at the swept-volume mesh's launch: RoundedCone posed, cold,
+    P = 65,536 (one lane a point: above LANES_MAX_POINTS), N = 12, coarse
+    128, rounds 24 — t* and d* bitwise equal to the plain version, the
+    gradient within 1e-3; one launch counted."""
+    dev = _cuda()
+    traj, pts, starts = _volume_chunk(dev)
+    assert fused_zoom._lanes_for(1, pts.shape[0]) == 1
+    conf = Config(poly_params=POSES["RoundedCone"])
+    shape, params = make_shape("RoundedCone", conf), \
+        fl.FlatParams.from_config(conf)
+    ts = torch.linspace(0.0, 1.0, 128, dtype=F32, device=dev)
+    xs, Rs = traj_states(traj, params, ts * traj.total_duration)
+    pose = torch.cat([xs, Rs.reshape(-1, 9)], dim=1).contiguous()
+    args = (pts, torch.zeros_like(pts[:, 0]), pose, starts,
+            traj.durations.contiguous(), traj.coeffs.contiguous())
+    kw = dict(coarse_n=128, rounds=24, warm_window=0.3)
+    before = fused_zoom.LAUNCHES
+    tk, dk, gk = fused_zoom.sweep_warm_fused(shape, params, *args, **kw)
+    assert fused_zoom.LAUNCHES == before + 1
+    tr, dr, gr = fused_zoom.sweep_warm_fused_ref(shape, params, *args, **kw)
+    torch.cuda.synchronize()
+    assert _same((tk, dk), (tr, dr))
+    assert float((gk - gr).abs().max()) <= G_ATOL
+
+
+@pytest.mark.cuda
+def test_swept_volume_chunk_k3_bitwise_on_card(tmp_path):
+    """K3 at the mesh robot's swept-volume launch: the L robot's baked
+    field (demo 6's 0.05 m grid), cold, P = 65,536, coarse 128, rounds 24 —
+    t*, d* and the gradient bitwise equal to the plain version."""
+    from isdf_torch.shapes import mesh, shape_from_config
+
+    dev = _cuda()
+    path = str(tmp_path / "Lthick.obj")
+    mesh.write_obj(path, *mesh.l_prism())
+    conf = Config(inputdata=path, selfmapresu=0.05)
+    grid = shape_from_config(conf, device=dev).grid
+    params = fl.FlatParams.from_config(conf)
+    traj, pts, starts = _volume_chunk(dev, seed=1)
+    args = (pts, torch.zeros_like(pts[:, 0]), starts,
+            traj.durations.contiguous(), traj.coeffs.contiguous())
+    kw = dict(coarse_n=128, rounds=24, warm_window=0.3)
+    before = grid_zoom.LAUNCHES_GRID
+    got = grid_zoom.grid_sweep_warm_fused(grid, params, *args, **kw)
+    assert grid_zoom.LAUNCHES_GRID == before + 1
+    want = grid_zoom.grid_sweep_warm_fused_ref(grid, params, *args, **kw)
+    torch.cuda.synchronize()
+    assert _same(got, want)

@@ -29,7 +29,10 @@ def test_import_leaves_jax_and_isdf_tpu_unloaded():
         "from isdf_torch.world import moving, pcd\n"
         "from isdf_torch import demos\n"
         "from isdf_torch.opt import checkpoint, lmbm\n"
-        "from isdf_torch.utils import monitor\n"
+        "from isdf_torch.utils import monitor, flops\n"
+        "from isdf_torch import cli, native, sim\n"
+        "from isdf_torch.viz import swept_mesh, export, html_view, live_view\n"
+        "from isdf_torch.plan import goals\n"
         "pm = PlannerManager(Config(), shape_name='Ball', device='cpu')\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'isdf_tpu')]\n"
