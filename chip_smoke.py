@@ -43,6 +43,24 @@ Phases (any failure exits non-zero):
                and batched_solve_chunked at B = 128 and B = 4096,
                batched_solve_audited at B = 128; the launch counters are set
                to 0 just before the B = 128 solve and read just after;
+  4b. multi-device — parallel/mesh.py: in this process a world-1 NCCL
+               group and a (1, 1) mesh, shard_batch and the B = 4096 solve,
+               bitwise equal to phase 4's; then two spawned ranks sharing the
+               one card (gloo; NCCL refuses two ranks on one card) at
+               (dp, sp) = (2, 1) and (1, 2), B = 128: the chunked solve
+               (K2's counter set to 0 just before it in each rank), held as
+               phase 4 holds its own (every scenario descends) and, with
+               dp = 2, bitwise to its block solved without a mesh in float32
+               and float64; a float64 batched_solve(max_iters=3) through the
+               non-fused sweep (float64; K2 sweeps in float32) within the
+               CPU tests' band of the unsharded one; one evaluation's t*
+               bitwise to the unsharded one; the dp solve's placement
+               equivariance; the L robot's sharded cost (K3's counter set to
+               0 just before); then the ranks of
+               parallel.dryrun.dryrun(world=2, sp=2) on the card.  K2 and K3
+               are held against their plain versions at every shape the
+               ranks launch them at.  It shows the path is right on the
+               card, not how it scales;
   5. mesh    — a mesh robot: the demo-6 scene (an L-shaped thick prism
                written as an OBJ file, baked through shape_from_config;
                procedural map3) through PlannerManager.plan, K3's counter set
@@ -122,6 +140,8 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import importlib
 import json
 import math
@@ -131,6 +151,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -961,7 +982,8 @@ def phase_profile(pm, batch_case, pm_mesh, planar, dev) -> None:
 
 def phase_batch(dev):
     """The scenario-batched back end on the card → (K2 launches of the
-    B = 128 solve, the B = 4096 case for ``--profile``)."""
+    B = 128 solve, the B = 4096 case for ``--profile``, {B: (coeffs, T,
+    costs, iters, K2 launches)} of the last timed solve at each B)."""
     import torch
     from isdf_torch.config import Config
     from isdf_torch.parallel import batch as pb
@@ -972,6 +994,7 @@ def phase_batch(dev):
     shape = make_shape("CappedCone", conf)
     trips = 2 * BATCH_CHUNK + 8          # loop trips per chunk, 2 evals each
     launches_main, big_case, small = None, None, None
+    solved = {}
 
     def solve(sb, **kw):
         chunks = [1]
@@ -1039,6 +1062,7 @@ def phase_batch(dev):
                    cost_first_median=float(f0.median()),
                    cost_final_median=float(costs.median()))
         print("batch " + json.dumps(rec), flush=True)
+        solved[B] = (coeffs, T, costs, iters, launches)
         if B == 128:
             launches_main, small = launches, (sb, costs)
         else:
@@ -1051,8 +1075,7 @@ def phase_batch(dev):
     # H100 at 700 W), tight enough that a scenario reading a neighbour's
     # pose table or durations would leave it.
     sb, costs = small
-    sb4 = pb.ScenarioBatch(*(getattr(sb, n)[:4] for n in (
-        "head", "tail", "q0", "T0", "points", "mask")))
+    sb4 = sb.map(lambda t: t[:4])
     (_, _, costs4, _), _ = solve(sb4)
     rel = ((costs4 - costs[:4]).abs() / costs[:4].abs()).tolist()
     print("batch B=4 against scenarios 0-3 of B=128: costs "
@@ -1083,7 +1106,409 @@ def phase_batch(dev):
         scenarios_clear=int((audit["min_sdf"] > 1e-3).sum()))), flush=True)
     check(fused_zoom.LAUNCHES_BATCHED > 0, "the audited solve never "
                                            "launched K2")
-    return launches_main, big_case
+    return launches_main, big_case, solved
+
+
+# the multi-device phase (4b): two ranks share the one card
+MULTI_B = 128
+RANKS_TIMEOUT_S = 300
+# an sp-sharded evaluation against the unsharded one: the point sum's
+# float32 reduction order, the cost relative to itself and the gradient to
+# its batch's largest entry
+SP_COST_RTOL, SP_GRAD_RTOL = 1e-4, 1e-4
+# a float64 three-iteration solve on a mesh against the unsharded one: the
+# band of tests/test_torch_multidevice.py (tests/test_parallel.py:27-38)
+F64_RTOL, C64_RTOL, C64_ATOL = 1e-8, 1e-6, 1e-8
+
+
+def _solve_diff(a, b) -> dict:
+    """Two solves' (coeffs, T, costs, iters): which are bitwise equal, how
+    many scenarios end at the same cost and step count, the largest and the
+    median relative cost difference."""
+    import torch
+
+    rel = ((a[2] - b[2]) / b[2]).abs()
+    return dict(bitwise=[torch.equal(x, y) for x, y in zip(a, b)],
+                costs_equal=int((a[2] == b[2]).sum()),
+                iters_equal=int((a[3] == b[3]).sum()),
+                max_rel_cost=float(rel.max()),
+                median_rel_cost=float(rel.median()))
+
+
+def _grad_rel(g, g_ref) -> float:
+    return float((g - g_ref).abs().max() / g_ref.abs().max())
+
+
+@contextlib.contextmanager
+def _first_calls(module, name, calls: dict):
+    """Within the block, ``module.name`` records in ``calls`` the arguments
+    of its first call at each signature (the shapes of its tensors and its
+    other numbers) → yields the function wrapped."""
+    import torch
+
+    real = getattr(module, name)
+
+    def spy(*args, **kw):
+        sig = tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                    for a in (*args, *kw.values())
+                    if isinstance(a, (torch.Tensor, int, float)))
+        calls.setdefault(sig, (args, kw))
+        return real(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def _hold_calls(kernel, calls: dict, launch, plain) -> list:
+    """Each recorded call replayed through the kernel's wrapper and its
+    plain version on the same inputs → the kernel cases (t*, d* and the
+    gradient compared; these launches count on no path)."""
+    import torch
+
+    cases = []
+    for args, kw in calls.values():
+        tk, dk, gk = launch(*args, **kw)
+        tr, dr, gr = plain(*args, **kw)
+        cases.append(dict(
+            kernel=kernel, B=int(args[2].shape[0]), P=int(args[2].shape[1]),
+            t_equal=torch.equal(tk, tr), d_equal=torch.equal(dk, dr),
+            g_equal=torch.equal(gk, gr),
+            max_abs_d=float((dk - dr).abs().max()),
+            max_abs_grad=float((gk - gr).abs().max())))
+    return cases
+
+
+def _kernel_case_ok(c) -> bool:
+    """K2 as the kernel phase holds it (t*, d* bitwise, the gradient within
+    G_ATOL), K3 bitwise in all three."""
+    return (c["t_equal"] and c["d_equal"]
+            and (c["g_equal"] if c["kernel"] == "K3"
+                 else c["max_abs_grad"] <= G_ATOL))
+
+
+def multidevice_rank(rank, sp, obj_path, outdir):
+    """One of two ranks on the one card (spawned by phase_multidevice, gloo):
+    the bench's batch (B = 128, P = 512) on a (2/sp, sp) mesh through
+    batched_solve_chunked, K2's counter set to 0 just before the solve and
+    read just after; one cold evaluation's t*, cost and gradient against
+    the unsharded evaluation's; the solve, in float32 and in float64,
+    against the solve of this rank's scenarios without a mesh; a float64
+    batched_solve(max_iters=3) on the mesh against the unsharded one
+    through the non-fused sweep (float64) and through K2 (float32); with
+    dp = 2 the solve of the batch rolled by one scenario; the L robot's
+    batched_cost_and_grad on the mesh (K3, its counter set to 0 just
+    before) against the unsharded one.  K2 and K3 are held against their
+    plain versions on the first launch of each shape in the solve and the
+    L robot's evaluation (this rank's B/dp × P/sp).  Writes rank{rank}.json
+    and .npz."""
+    import torch
+    from isdf_torch.config import Config
+    from isdf_torch.core import flatness as fl, timemap
+    from isdf_torch.opt import backend
+    from isdf_torch.parallel import batch as pb
+    from isdf_torch.shapes import make_shape, shape_from_config
+    from isdf_torch.sweep import fused_zoom, grid_zoom
+
+    conf = Config(**BATCH_CONF)
+    shape = make_shape("CappedCone", conf)
+    mesh = pb.make_mesh(2, sp=sp)
+    dev = mesh.device
+    rec = dict(rank=rank, mesh=list(mesh.shape), dp_idx=mesh.dp_idx,
+               sp_idx=mesh.sp_idx, device=str(dev),
+               card=torch.cuda.get_device_name(dev))
+    sb = pb.make_random_batch(conf, MULTI_B, N=BATCH_N, n_points=BATCH_P,
+                              seed=0, device=dev)
+    local = pb.shard_batch(sb, mesh)
+    rows, cols = mesh.block(MULTI_B, "dp"), mesh.block(BATCH_P, "sp")
+    kw = dict(max_iters=BATCH_ITERS, chunk=BATCH_CHUNK)
+
+    k2_calls = {}
+    with _first_calls(fused_zoom, "sweep_warm_fused_batched",
+                      k2_calls) as k2:
+        torch.cuda.synchronize()
+        fused_zoom.LAUNCHES_BATCHED = 0
+        t0 = time.perf_counter()
+        out = pb.batched_solve_chunked(shape, conf, local, **kw)
+        torch.cuda.synchronize()
+        rec.update(solve_wall_s=time.perf_counter() - t0,
+                   k2_launches=fused_zoom.LAUNCHES_BATCHED)
+    cases = _hold_calls("K2", k2_calls, k2,
+                        fused_zoom.sweep_warm_fused_batched_ref)
+
+    # one cold evaluation: every point's t* is its own sweep's
+    params = fl.FlatParams.from_config(conf)
+    w = backend.BackendWeights.from_config(conf)
+
+    def evaluate(b, group):
+        cg = backend.make_cost_fn(
+            shape, params, w, b.head, b.tail, BATCH_N, b.points, b.mask,
+            integral_res=conf.integralIntervs,
+            coarse_n=conf.sweep_coarse_samples,
+            refine_rounds=conf.sweep_refine_rounds, sp_group=group)
+        return cg(backend.pack(timemap.T_to_tau(b.T0), b.q0),
+                  torch.zeros_like(b.points[..., 0]))
+
+    f_s, g_s, t_s = evaluate(local, mesh.sp_group if sp > 1 else None)
+    f_u, g_u, t_u = evaluate(sb, None)
+    rec["eval"] = dict(
+        t_star_equal=torch.equal(t_s, t_u[rows, cols]),
+        max_rel_cost=float(((f_s - f_u[rows]) / f_u[rows]).abs().max()),
+        grad_rel=_grad_rel(g_s, g_u[rows]))
+    ratio = out[2][rows] / f_u[rows]
+    rec["solve"] = dict(cost_ratio_max=float(ratio.max()),
+                        cost_ratio_median=float(ratio.median()))
+    arrays = dict(zip(("coeffs", "T", "costs", "iters"),
+                      (t.cpu().numpy() for t in out)))
+
+    # this rank's scenarios solved without a mesh in this process, float32
+    # and float64: over dp the rank runs a batch of B/dp, which must give
+    # that batch's solve bit for bit; over sp the point sum rounds otherwise
+    sb64 = pb.make_random_batch(conf, MULTI_B, N=BATCH_N, n_points=BATCH_P,
+                                seed=0, device=dev, dtype=torch.float64)
+    out64 = pb.batched_solve_chunked(shape, conf, pb.shard_batch(sb64, mesh),
+                                     **kw)
+    for tag, full, mine in (("float32", sb, out), ("float64", sb64, out64)):
+        alone = pb.batched_solve_chunked(
+            shape, conf, full.map(lambda t: t[rows]), **kw)
+        rec[f"block_{tag}"] = _solve_diff([t[rows] for t in mine], alone)
+    # the CPU tests' witness: batched_solve(max_iters=3) in float64 on the
+    # mesh against the whole batch's without a mesh, in their band.  K2
+    # sweeps in float32 whatever the batch's type, so the witness sweeps
+    # through the non-fused path, in float64 as on the CPU; K2's float64
+    # solve is printed beside it
+    for tag, s in (("solve3_float64", dataclasses.replace(shape, spec=None)),
+                   ("solve3_float64_k2", shape)):
+        three = [pb.batched_solve(s, conf, b, max_iters=3)
+                 for b in (pb.shard_batch(sb64, mesh), sb64)]
+        rec[tag] = dict(
+            _solve_diff(*three),
+            within_band=bool(
+                torch.equal(three[0][3], three[1][3])
+                and torch.allclose(three[0][2], three[1][2], rtol=F64_RTOL,
+                                   atol=0)
+                and all(torch.allclose(a, b, rtol=C64_RTOL, atol=C64_ATOL)
+                        for a, b in zip(three[0][:2], three[1][:2]))))
+    if mesh.dp > 1:
+        rolled = sb.map(lambda t: torch.roll(t, 1, 0))
+        out_r = pb.batched_solve_chunked(shape, conf,
+                                         pb.shard_batch(rolled, mesh), **kw)
+        rec["rolled_equal"] = [torch.equal(torch.roll(b, -1, 0), a)
+                               for a, b in zip(out, out_r)]
+
+    # the L robot (K3) on the mesh
+    lshape = shape_from_config(Config(**DEMO6, inputdata=obj_path),
+                               device=dev)
+    k3_calls = {}
+    with _first_calls(grid_zoom, "grid_sweep_warm_fused_batched",
+                      k3_calls) as k3:
+        torch.cuda.synchronize()
+        grid_zoom.LAUNCHES_GRID = 0
+        t0 = time.perf_counter()
+        f_l, g_l = pb.batched_cost_and_grad(lshape, conf, local)
+        torch.cuda.synchronize()
+        rec.update(l_cost_wall_s=time.perf_counter() - t0,
+                   k3_launches=grid_zoom.LAUNCHES_GRID)
+    f_lu, g_lu = pb.batched_cost_and_grad(lshape, conf, sb)
+    rec["l_cost"] = dict(
+        max_rel_cost=float(((f_l - f_lu) / f_lu).abs().max()),
+        grad_rel=_grad_rel(g_l, g_lu))
+    rec["kernel_cases"] = cases + _hold_calls(
+        "K3", k3_calls, k3, grid_zoom.grid_sweep_warm_fused_batched_ref)
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **arrays)
+    Path(outdir, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def dryrun_rank_held(rank, world, sp, outdir):
+    """A rank of parallel.dryrun on the card (spawned by phase_multidevice,
+    gloo) with its K2 and K3 calls recorded; after its sections the first
+    launch of each shape is held against the plain version →
+    outdir/kernels{rank}.json beside the dryrun's rank{rank}.json."""
+    from isdf_torch.parallel.dryrun import dryrun_rank
+    from isdf_torch.sweep import fused_zoom, grid_zoom
+
+    k2_calls, k3_calls = {}, {}
+    with _first_calls(fused_zoom, "sweep_warm_fused_batched",
+                      k2_calls) as k2, \
+            _first_calls(grid_zoom, "grid_sweep_warm_fused_batched",
+                         k3_calls) as k3:
+        dryrun_rank(rank, world, sp, None, outdir)
+    cases = (_hold_calls("K2", k2_calls, k2,
+                         fused_zoom.sweep_warm_fused_batched_ref)
+             + _hold_calls("K3", k3_calls, k3,
+                           grid_zoom.grid_sweep_warm_fused_batched_ref))
+    Path(outdir, f"kernels{rank}.json").write_text(json.dumps(cases))
+
+
+def phase_multidevice(solved, obj_path) -> dict:
+    """Phase 4b, the multi-device path (parallel/mesh.py):
+    (a) in this process a world-1 NCCL group and a (1, 1) mesh: shard_batch
+        and batched_solve_chunked at B = 4096, bitwise equal to phase 4's
+        solve without a mesh;
+    (b) two spawned ranks on the one card, gloo (NCCL refuses two ranks on
+        one card), at (dp, sp) = (2, 1) and (1, 2): multidevice_rank; each
+        run's distance from phase 4's B = 128 solve is printed;
+    (c) the ranks of isdf_torch.parallel.dryrun.dryrun(world=2, sp=2) on
+        the card, K2 and K3 held at each shape they launch at:
+        dryrun_rank_held.
+    This measures that the path is right on the card, not how it scales.
+    → {"K2"/"K3": {path: launches}, "cases": [kernel cases]}."""
+    import torch
+    import torch.distributed as dist
+    from isdf_torch.config import Config
+    from isdf_torch.parallel import batch as pb
+    from isdf_torch.parallel.dryrun import run_ranks
+    from isdf_torch.shapes import make_shape
+    from isdf_torch.sweep import fused_zoom
+
+    conf = Config(**BATCH_CONF)
+    shape = make_shape("CappedCone", conf)
+    paths = {"K2": {}, "K3": {}}
+    cases = []
+    trips = 2 * BATCH_CHUNK + 8
+
+    B = 4096
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv",
+                                world_size=1, rank=0)
+        try:
+            mesh = pb.make_mesh(1, sp=1)
+            sb = pb.shard_batch(pb.make_random_batch(
+                conf, B, N=BATCH_N, n_points=BATCH_P, seed=0), mesh)
+            torch.cuda.synchronize()
+            fused_zoom.LAUNCHES_BATCHED = 0
+            t0 = time.perf_counter()
+            out = pb.batched_solve_chunked(shape, conf, sb,
+                                           max_iters=BATCH_ITERS,
+                                           chunk=BATCH_CHUNK)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fused_zoom.LAUNCHES_BATCHED
+        finally:
+            dist.destroy_process_group()
+    ref = solved[B]
+    same = [torch.equal(a, b) for a, b in zip(out, ref[:4])]
+    print("multidevice 1x1 nccl " + json.dumps(dict(
+        B=B, wall_s=wall, plans_per_s=B / wall, k2_launches=launches,
+        phase4_k2_launches=ref[4], bitwise_equal_to_phase4=same)),
+        flush=True)
+    check(all(same), "a (1, 1) mesh's B = 4096 solve differs from phase 4's "
+                     f"without a mesh (coeffs, T, costs, iters equal: {same})")
+    check(launches == ref[4], f"(1, 1) mesh: {launches} K2 launches, "
+                              f"{ref[4]} without a mesh")
+    paths["K2"]["batched_solve_chunked mesh 1x1 nccl B = 4096"] = launches
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(f"multidevice: compute mode {mode!r}, {torch.cuda.device_count()} "
+          "card(s); two gloo ranks share cuda:0", flush=True)
+    check(mode.splitlines()[:1] == ["Default"],
+          f"the card's compute mode {mode!r} refuses a second process")
+    ref128 = [t.cpu().numpy() for t in solved[MULTI_B][:4]]
+    for sp in (1, 2):
+        label = f"{2 // sp}x{sp}"
+        with tempfile.TemporaryDirectory() as outdir:
+            t0 = time.perf_counter()
+            run_ranks(multidevice_rank, 2, (sp, obj_path, outdir),
+                      backend_name="gloo", timeout=RANKS_TIMEOUT_S)
+            spawn_s = time.perf_counter() - t0
+            recs = [json.loads(Path(outdir, f"rank{r}.json").read_text())
+                    for r in range(2)]
+            outs = [dict(np.load(os.path.join(outdir, f"rank{r}.npz")))
+                    for r in range(2)]
+        rel = np.abs(outs[0]["costs"] - ref128[2]) / np.abs(ref128[2])
+        summary = dict(
+            mesh=label, B=MULTI_B, spawn_wall_s=spawn_s,
+            ranks_equal=[bool(np.array_equal(outs[0][k], outs[1][k]))
+                         for k in ("coeffs", "T", "costs", "iters")],
+            phase4=dict(costs_equal=int((outs[0]["costs"] == ref128[2]).sum()),
+                        iters_equal=int((outs[0]["iters"] == ref128[3]).sum()),
+                        max_rel_cost=float(rel.max()),
+                        median_rel_cost=float(np.median(rel)),
+                        within_1e_4=int((rel <= 1e-4).sum())))
+        for r in recs:
+            print(f"multidevice {label} rank {r['rank']} " + json.dumps(r),
+                  flush=True)
+        print(f"multidevice {label} " + json.dumps(summary), flush=True)
+        what = f"multidevice {label}"
+        check(all(summary["ranks_equal"]),
+              f"{what}: the two ranks return other results")
+        for r in recs:
+            rw = f"{what} rank {r['rank']}"
+            # a rounding change of one evaluation can flip a line-search
+            # test and send a scenario down another descent (PERF.md §6):
+            # a solve whose sums round otherwise is held as phase 4 holds
+            # its own, and the dp solve, whose sums do not change, bitwise
+            # to its block's solve without a mesh
+            check(r["solve"]["cost_ratio_max"] <= 1.0 + COST_RISE
+                  and r["solve"]["cost_ratio_median"] < 0.9,
+                  f"{rw}: the solve does not descend: {r['solve']}")
+            if sp == 1:
+                for k in ("block_float32", "block_float64"):
+                    check(all(r[k]["bitwise"]),
+                          f"{rw}: its block's solve without a mesh differs: "
+                          f"{r[k]}")
+            check(r["solve3_float64"]["within_band"],
+                  f"{rw}: the float64 three-iteration solve leaves the "
+                  f"unsharded one's band: {r['solve3_float64']}")
+            check(r["k2_launches"] > 0
+                  and (r["k2_launches"] - 1) % (2 * trips) == 0,
+                  f"{rw}: {r['k2_launches']} K2 launches, not 1 + 2 · "
+                  f"{trips} a chunk")
+            check(r["k3_launches"] > 0, f"{rw}: K3 never launched")
+            check(r["eval"]["t_star_equal"], f"{rw}: t* of one evaluation "
+                                             "differs from the unsharded")
+            check(r["eval"]["max_rel_cost"] <= SP_COST_RTOL
+                  and r["eval"]["grad_rel"] <= SP_GRAD_RTOL,
+                  f"{rw}: one evaluation off the unsharded: {r['eval']}")
+            check(r["l_cost"]["max_rel_cost"] <= SP_COST_RTOL
+                  and r["l_cost"]["grad_rel"] <= SP_GRAD_RTOL,
+                  f"{rw}: the L robot's cost off the unsharded: "
+                  f"{r['l_cost']}")
+            check(all(r.get("rolled_equal", [True])),
+                  f"{rw}: the dp solve depends on placement "
+                  f"{r.get('rolled_equal')}")
+            held = {c["kernel"] for c in r["kernel_cases"]}
+            check(held == {"K2", "K3"}, f"{rw}: held only {held}")
+            for c in r["kernel_cases"]:
+                check_kernel(_kernel_case_ok(c),
+                             f"{rw}: {c['kernel']} off its plain version "
+                             f"({c})")
+                cases.append(dict(c, mesh=label, rank=r["rank"]))
+            paths["K2"][f"batched_solve_chunked mesh {label} rank "
+                        f"{r['rank']}"] = r["k2_launches"]
+            paths["K3"][f"batched_cost_and_grad L mesh {label} rank "
+                        f"{r['rank']}"] = r["k3_launches"]
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as outdir:
+        run_ranks(dryrun_rank_held, 2, (2, 2, outdir), backend_name="gloo",
+                  timeout=RANKS_TIMEOUT_S)
+        recs = [(json.loads(Path(outdir, f"rank{r}.json").read_text()),
+                 json.loads(Path(outdir, f"kernels{r}.json").read_text()))
+                for r in range(2)]
+    wall = time.perf_counter() - t0
+    for r, held in recs:
+        rw = f"dryrun rank {r['rank']}"
+        print(f"multidevice {rw} " + json.dumps(r), flush=True)
+        print(f"multidevice {rw} kernels " + json.dumps(held), flush=True)
+        for k in ("K2", "K3"):
+            n = sum(v[k] for v in r.values() if isinstance(v, dict)
+                    and k in v)
+            check(n > 0, f"{rw}: {k} never launched")
+            check(any(c["kernel"] == k for c in held),
+                  f"{rw}: no {k} launch held against its plain version")
+            paths[k][rw] = n
+        for c in held:
+            check_kernel(_kernel_case_ok(c),
+                         f"{rw}: {c['kernel']} off its plain version ({c})")
+            cases.append(dict(c, mesh="dryrun", rank=r["rank"]))
+    print(f"multidevice dryrun: world 2, sp 2, gloo, {wall:.2f} s",
+          flush=True)
+    return dict(paths, cases=cases)
 
 
 def phase_mesh_plan(dev, obj_path):
@@ -2444,7 +2869,8 @@ def main() -> int:
         # the timed paths first, the kernel phase's profiler traces after
         plan_m, k1_launches, pm, traj, solve1 = phase_plan(dev)
         k4_launches = phase_refine(pm, traj)
-        k2_launches, batch_case = phase_batch(dev)
+        k2_launches, batch_case, batch_solved = phase_batch(dev)
+        multi = phase_multidevice(batch_solved, obj_path)
         _, k3_launches, pm_mesh, traj_mesh = phase_mesh_plan(dev, obj_path)
         phase_mesh_batch(dev, pm_mesh.shape)
         planar = phase_planar(dev)
@@ -2498,7 +2924,10 @@ def main() -> int:
                 "run_demo(1, monitor=)": k1_monitor_demo,
                 "swept_mesh": swept["demo 1 RoundedCone"]["launches"]}
     k3_paths = {"PlannerManager.plan demo 6": k3_launches,
-                "swept_mesh": swept["demo 6 L"]["launches"]}
+                "swept_mesh": swept["demo 6 L"]["launches"], **multi["K3"]}
+    k2_paths = {"batched_solve_chunked B = 128": k2_launches, **multi["K2"]}
+    multi_err = {k: max(c["max_abs_d"] for c in multi["cases"]
+                        if c["kernel"] == k) for k in ("K2", "K3")}
     k1p_paths = {**{f"plan_planar {k}": v["k1_launches"]
                     for k, v in planar.items()},
                  **{f"run_demo({k})": v for k, v in k1_demos.items()}}
@@ -2512,9 +2941,10 @@ def main() -> int:
                     max(r["max_abs_d"] for r in planar_recs["K1"]),
                     k1_planar, "planar", k1p_paths),
         kernel_line("sweep_warm_fused_batched",
-                    "isdf_tpu/sweep/pallas_zoom.py:458", k2_launches,
-                    k2_main["max_abs_d"], k2_main, "flat",
-                    {"batched_solve_chunked B = 128": k2_launches}),
+                    "isdf_tpu/sweep/pallas_zoom.py:458",
+                    sum(k2_paths.values()),
+                    max(k2_main["max_abs_d"], multi_err["K2"]), k2_main,
+                    "flat", k2_paths),
         kernel_line("sweep_warm_fused_batched",
                     "isdf_tpu/sweep/pallas_zoom.py:458", planar_paths["K2"],
                     planar_recs["K2"][0]["max_abs_d"], planar_recs["K2"][0],
@@ -2529,8 +2959,9 @@ def main() -> int:
         kernel_line("grid_sweep_warm_fused",
                     "isdf_tpu/sweep/pallas_grid_zoom.py:314",
                     sum(k3_paths.values()),
-                    max(r["max_abs_d"] for r in k3_recs
-                        + [volume_recs["K3"]]), k3_main, "flat", k3_paths,
+                    max([r["max_abs_d"] for r in k3_recs
+                         + [volume_recs["K3"]]] + [multi_err["K3"]]),
+                    k3_main, "flat", k3_paths,
                     source="isdf_torch/csrc/grid_sweep.cu"),
         kernel_line("grid_sweep_warm_fused",
                     "isdf_tpu/sweep/pallas_grid_zoom.py:314",

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from isdf_torch.core.poly import PolyTraj
+
 
 def _beta(t: torch.Tensor, n_coef: int, order: int) -> torch.Tensor:
     """β_order(t) rows, shape t.shape + (n_coef,): β·c = d^order p / dt^order."""
@@ -91,6 +93,12 @@ def solve(q, T, head, tail, s: int = 3) -> torch.Tensor:
     c = torch.where((info == 0)[..., None, None], c,
                     torch.full_like(c, math.nan))
     return c.reshape(tuple(T.shape) + (2 * s, 3))
+
+
+def trajectory(q, T, head, tail, s: int = 3) -> PolyTraj:
+    """(q, T) → evaluable trajectory; PolyTraj is degree-generic, so min-acc
+    (s=2, degree 3) and min-snap (s=4, degree 7) evaluate end-to-end."""
+    return PolyTraj(durations=T, coeffs=solve(q, T, head, tail, s))
 
 
 def energy(coeffs, T, s: int = 3) -> torch.Tensor:

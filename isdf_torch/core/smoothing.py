@@ -44,3 +44,9 @@ def smoothed_l1(x: torch.Tensor, mu: float) -> torch.Tensor:
     zero = torch.zeros_like(x)
     return torch.where(x <= 0.0, zero,
                        torch.where(x >= mu, x - 0.5 * mu, blend))
+
+
+def cubic_hinge(x: torch.Tensor) -> torch.Tensor:
+    """x³ for x>0 else 0 (ref cubic(), mid-end waypoint attraction)."""
+    xp = vmax(x, 0.0)
+    return xp * xp * xp

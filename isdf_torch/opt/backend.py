@@ -30,6 +30,7 @@ from isdf_torch.core.smoothing import clip, smoothed_l1
 from isdf_torch.device import resolve_device
 from isdf_torch.opt import lbfgs, lmbm
 from isdf_torch.opt.attitude import attitude_penalty, pad_attitude_refs
+from isdf_torch.parallel.mesh import copy_to_sp, reduce_from_sp
 from isdf_torch.sweep.sweep_sdf import sweep_sdf_warm
 
 
@@ -109,17 +110,26 @@ def integral_penalty(traj: PolyTraj, params, w: BackendWeights, res: int):
 
 
 def swept_penalty(shape, traj: PolyTraj, params, w: BackendWeights, points,
-                  mask, t_warm, coarse_n: int, refine_rounds: int):
+                  mask, t_warm, coarse_n: int, refine_rounds: int,
+                  sp_group=None):
     """Swept-volume safety penalty over obstacle points (ref
     addSaftyPenaOnSweptVolumeParallel, μ = 0.01) → (cost, new t*); for a
-    batched traj, points (B, P, 3) → (cost (B,), t* (B, P))."""
+    batched traj, points (B, P, 3) → (cost (B,), t* (B, P)).
+
+    With an "sp" process group the points are this rank's block of each
+    scenario's points: the trajectory enters the group through
+    ``copy_to_sp`` and the point sum leaves it through ``reduce_from_sp``,
+    so cost and gradient are the whole sum's on every rank of the group."""
+    if sp_group is not None:
+        traj = PolyTraj(copy_to_sp(traj.durations, sp_group),
+                        copy_to_sp(traj.coeffs, sp_group))
     sdf, t_star, _ = sweep_sdf_warm(
         shape, traj, params, points, t_warm,
         coarse_n=coarse_n, refine_rounds=refine_rounds, device=points.device,
     )
     pena = w.weight_p * smoothed_l1(w.safety_hor - sdf, 0.01)
     cost = minco.sum_last(torch.where(mask, pena, torch.zeros_like(pena)), 1)
-    return cost, t_star
+    return reduce_from_sp(cost, sp_group), t_star
 
 
 class CostBreakdown(NamedTuple):
@@ -133,7 +143,8 @@ class CostBreakdown(NamedTuple):
 def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
                  points, mask, integral_res: int = 64, coarse_n: int = 64,
                  refine_rounds: int = 16, with_breakdown: bool = False,
-                 att=None, weight_ar: float = 0.0, bridge: bool = True):
+                 att=None, weight_ar: float = 0.0, bridge: bool = True,
+                 sp_group=None):
     """cost_and_grad(x, aux) for opt.lbfgs / opt.lmbm; aux = t* warm starts
     (P,).  With ``with_breakdown`` → (cost_and_grad, raw_cost,
     cost_and_grad_bd): raw_cost(x, t_warm) → (total, (t*, CostBreakdown)),
@@ -145,7 +156,9 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
     mask (B, P), x (B, 4N−3) and aux (B, P), f is the per-scenario cost (B,)
     and g (B, 4N−3) every scenario's own gradient: the scenarios are
     independent, so one backward pass of the summed cost gives them all.  The
-    attitude term takes one trajectory only."""
+    attitude term takes one trajectory only.  ``sp_group``: the "sp" group
+    of a mesh whose ranks each hold a block of the points (swept_penalty);
+    None, no collective."""
     if att is not None and weight_ar > 0.0 and head.dim() != 2:
         raise ValueError("the attitude term takes one scenario, not a batch")
 
@@ -160,7 +173,7 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
                 bridge=bridge)
         safety, t_star = swept_penalty(
             shape, traj, params, w, points, mask, t_warm, coarse_n,
-            refine_rounds)
+            refine_rounds, sp_group)
         total = e + t_cost + dyn + safety
         return total, (t_star, CostBreakdown(total, e, t_cost, dyn, safety))
 

@@ -1,6 +1,6 @@
 """Scenario-parallel batch engine: many independent (map × shape × goal)
-trajectory solves advanced together on one card (counterpart of
-``isdf_tpu/parallel/batch.py``, single device).
+trajectory solves advanced together on one card or over a mesh of ranks
+(counterpart of ``isdf_tpu/parallel/batch.py``).
 
 The JAX package vmaps one scenario's solve; here every function of the cost
 carries the scenario axis B itself (core/minco, core/poly, sweep/fast_eval,
@@ -10,8 +10,12 @@ launch of K2 (sweep/fused_zoom.sweep_warm_fused_batched), and
 per loop trip.  Scenarios that converge early are frozen (masked no-ops)
 while the others run.  The host reads device values once per chunk.
 
-The dp × sp placement over several devices (``make_mesh``/``shard_batch``)
-is not here yet: it waits for the multi-device slice.
+Over several ranks (parallel/mesh.py): ``shard_batch`` gives each rank its
+block of scenarios (dp) and of each scenario's points (sp) and records the
+mesh on the batch.  The entry points read ``batch.mesh``: the cost sums the
+points over "sp" (opt/backend.swept_penalty), every host decision reads a
+global value, and the results come back whole, in scenario order, on every
+rank, as ``np.asarray`` of JAX's sharded outputs does.
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ from isdf_torch.core import timemap
 from isdf_torch.core.poly import PolyTraj
 from isdf_torch.device import check_on, resolve_device
 from isdf_torch.opt import backend, lbfgs
+from isdf_torch.parallel.mesh import (  # noqa: F401
+    Mesh, gather_dp, global_all, global_min, global_sum, make_mesh,
+    shard_batch)
 from isdf_torch.sweep.sweep_sdf import sweep_sdf
 
 
@@ -40,6 +47,9 @@ class ScenarioBatch:
     T0: torch.Tensor          # (B, N)
     points: torch.Tensor      # (B, P, 3) obstacle points (padded)
     mask: torch.Tensor        # (B, P) bool
+    # set by shard_batch: the fields are then this rank's block, (B/dp, …)
+    # and points/mask (B/dp, P/sp, …)
+    mesh: Optional[Mesh] = None
 
     @classmethod
     def from_arrays(cls, head, tail, q0, T0, points, mask, device=None,
@@ -68,6 +78,12 @@ class ScenarioBatch:
     def device(self) -> torch.device:
         return self.points.device
 
+    def map(self, fn: Callable) -> "ScenarioBatch":
+        """The batch of ``fn`` applied to each array field (for instance
+        ``lambda t: t[rows]``), with no mesh."""
+        return ScenarioBatch(fn(self.head), fn(self.tail), fn(self.q0),
+                             fn(self.T0), fn(self.points), fn(self.mask))
+
 
 def _device_of(batch: ScenarioBatch, device) -> torch.device:
     """The device an entry point was asked for (None: the card); the batch
@@ -80,6 +96,7 @@ def _device_of(batch: ScenarioBatch, device) -> torch.device:
 
 def _cost_fn(shape, conf, batch: ScenarioBatch):
     N = batch.T0.shape[1]
+    mesh = batch.mesh
     return backend.make_cost_fn(
         shape, fl.FlatParams.from_config(conf),
         backend.BackendWeights.from_config(conf), batch.head, batch.tail, N,
@@ -87,7 +104,13 @@ def _cost_fn(shape, conf, batch: ScenarioBatch):
         integral_res=conf.integralIntervs,
         coarse_n=conf.sweep_coarse_samples,
         refine_rounds=conf.sweep_refine_rounds,
+        # sp = 1 places no collective: a (dp, 1) mesh runs today's path
+        sp_group=mesh.sp_group if mesh is not None and mesh.sp > 1 else None,
     )
+
+
+def _gathered(batch: ScenarioBatch, *xs):
+    return tuple(gather_dp(x, batch.mesh) for x in xs)
 
 
 def _x0(batch: ScenarioBatch) -> torch.Tensor:
@@ -109,22 +132,26 @@ def _finish(batch: ScenarioBatch, x):
 
 def batched_cost_and_grad(shape, conf, batch: ScenarioBatch, device=None):
     """One cost+gradient evaluation across all scenarios, from the cold
-    start (t* warm seeds 0) → (f (B,), g (B, 4N−3))."""
+    start (t* warm seeds 0) → (f (B,), g (B, 4N−3)); over a mesh, every
+    scenario's on every rank."""
     _device_of(batch, device)
     f, g, _ = _cost_fn(shape, conf, batch)(
         _x0(batch), torch.zeros_like(batch.points[..., 0]))
-    return f, g
+    return _gathered(batch, f, g)
 
 
 def batched_solve(shape, conf, batch: ScenarioBatch, max_iters: int = 50,
                   device=None):
     """Full batched back-end solve, every scenario's L-BFGS in lockstep →
-    (coeffs (B, N, 6, 3), T (B, N), final costs (B,), iters (B,))."""
+    (coeffs (B, N, 6, 3), T (B, N), final costs (B,), iters (B,)); over a
+    mesh, every scenario's on every rank.  The lockstep loop runs a fixed
+    number of trips and reads nothing on the host, so the ranks stay
+    together without a global decision."""
     _device_of(batch, device)
     res = _lockstep(conf, _cost_fn(shape, conf, batch), _x0(batch),
                     torch.zeros_like(batch.points[..., 0]), max_iters)
     coeffs, T = _finish(batch, res.x)
-    return coeffs, T, res.f, res.n_iters
+    return _gathered(batch, coeffs, T, res.f, res.n_iters)
 
 
 def batched_solve_chunked(shape, conf, batch: ScenarioBatch,
@@ -135,10 +162,22 @@ def batched_solve_chunked(shape, conf, batch: ScenarioBatch,
     scenario per chunk (2·chunk + 8 loop trips of two cost evaluations
     each), the full solver state carried across chunks.  Between chunks the
     host calls ``callback(result)`` and reads ``converged`` once — the only
-    device values it reads.  t_warm0 (B, P) optionally seeds the per-point
-    argmin-time warm starts (the audited re-solve path).
-    Returns (coeffs, T, costs, iters)."""
+    device values it reads; over a mesh the loop ends when every scenario
+    of every rank has converged, and ``callback`` sees this rank's block.
+    t_warm0 (B, P), placed like ``batch.mask``, optionally seeds the
+    per-point argmin-time warm starts (the audited re-solve path).
+    Returns (coeffs, T, costs, iters), over a mesh every scenario's on every
+    rank."""
     _device_of(batch, device)
+    return _gathered(batch, *_solve_chunked(shape, conf, batch, max_iters,
+                                            chunk, callback, t_warm0))
+
+
+def _solve_chunked(shape, conf, batch: ScenarioBatch, max_iters: int,
+                   chunk: int, callback: Optional[Callable] = None,
+                   t_warm0=None):
+    """batched_solve_chunked on this rank's block → its (coeffs, T, costs,
+    iters)."""
     if t_warm0 is None:
         t_warm0 = torch.zeros_like(batch.points[..., 0])
     cost_and_grad = _cost_fn(shape, conf, batch)
@@ -148,7 +187,7 @@ def batched_solve_chunked(shape, conf, batch: ScenarioBatch,
     while iters_done < max_iters:
         if callback is not None:
             callback(res)
-        if bool(res.converged.all()):
+        if global_all(res.converged, batch.mesh):
             break
         res = _lockstep(conf, cost_and_grad, res.x, res.aux, chunk,
                         resume_state=res.state, **kw)
@@ -193,14 +232,20 @@ def batched_solve_audited(shape, conf, batch: ScenarioBatch,
     every grazing point's t* is seeded from the audit scan.  Scenarios with
     no violations re-solve from their own converged state in lockstep.
 
-    reserve_points: (B, R, 3) optional; reserve_mask: (B, R).
+    reserve_points: (B, R, 3) optional; reserve_mask: (B, R).  Over a mesh
+    they are the global pool, as every rank builds it: each rank keeps its
+    scenarios' rows (the pool splits over "dp" and is whole on every "sp"
+    rank), and the injected slots split over "sp" as the points do.  Every
+    decision of the loop reads global counts.
     Returns (coeffs, T, costs, iters, audit): audit = dict with the
     violation count per round (solve set + reserve) and the final min SDF
-    per scenario over both sets.
+    per scenario over both sets; over a mesh, every scenario's on every
+    rank.
     """
     dev = _device_of(batch, device)
-    kw = dict(max_iters=max_iters, chunk=chunk, device=dev)
-    coeffs, T, costs, iters = batched_solve_chunked(shape, conf, batch, **kw)
+    mesh = batch.mesh
+    kw = dict(max_iters=max_iters, chunk=chunk)
+    coeffs, T, costs, iters = _solve_chunked(shape, conf, batch, **kw)
     B, P = batch.mask.shape
     history = []
     sdf = None
@@ -216,22 +261,30 @@ def batched_solve_audited(shape, conf, batch: ScenarioBatch,
             reserve_points.shape[:2], dtype=torch.bool, device=dev) \
             if reserve_mask is None else torch.as_tensor(
                 reserve_mask, dtype=torch.bool, device=dev)
+        K = min(int(inject_budget), reserve_points.shape[1])
+        k_rows = slice(0, K)
+        if mesh is not None:    # this rank's scenarios, its K/sp slots
+            rows = mesh.block(reserve_points.shape[0], "dp")
+            reserve_points, reserve_mask = (reserve_points[rows],
+                                            reserve_mask[rows])
+            k_rows = mesh.block(K, "sp")
     for rnd in range(rounds + 1):   # the last pass audits the last re-solve
         sdf, t_star = _batched_audit(shape, conf, solve_batch, coeffs, T,
                                      audit_coarse_n)
-        viol = int(((sdf <= margin) & solve_batch.mask).sum())
+        viol = int(global_sum(((sdf <= margin) & solve_batch.mask).sum(),
+                              mesh))
         inj = None
         if reserve_points is not None:
             sdf_r, t_star_r = _batched_audit(
                 shape, conf, replace(batch, points=reserve_points), coeffs,
                 T, audit_coarse_n)
             sdf_r = torch.where(reserve_mask, sdf_r, inf)
-            viol += int((sdf_r <= margin).sum())
+            # the pool is whole on every "sp" rank: count it over "dp"
+            viol += int(global_sum((sdf_r <= margin).sum(), mesh, "dp"))
             min_sdf_reserve = sdf_r.min(dim=1).values
             # promote the K nearest-grazing reserve points into the extra
             # slots (a fixed K keeps the re-solve's shapes stable)
-            K = min(int(inject_budget), reserve_points.shape[1])
-            order = torch.argsort(sdf_r, dim=1, stable=True)[:, :K]
+            order = torch.argsort(sdf_r, dim=1, stable=True)[:, :K][:, k_rows]
             inj_pts = torch.gather(reserve_points, 1,
                                    order[:, :, None].expand(-1, -1, 3))
             inj_sdf = torch.gather(sdf_r, 1, order)
@@ -253,11 +306,14 @@ def batched_solve_audited(shape, conf, batch: ScenarioBatch,
                 points=torch.cat([solve_batch.points[:, :P], inj_pts], 1),
                 mask=torch.cat([solve_batch.mask[:, :P], inj_mask], 1))
             t_warm = torch.cat([t_warm[:, :P], inj_t], dim=1)
-        coeffs, T, costs, iters = batched_solve_chunked(
+        coeffs, T, costs, iters = _solve_chunked(
             shape, conf, solve_batch, t_warm0=t_warm, **kw)
-    min_sdf = torch.where(solve_batch.mask, sdf, inf).min(dim=1).values
+    min_sdf = global_min(torch.where(solve_batch.mask, sdf, inf).min(
+        dim=1).values, mesh, "sp")
     if min_sdf_reserve is not None:
         min_sdf = torch.minimum(min_sdf, min_sdf_reserve)
+    coeffs, T, costs, iters, min_sdf = _gathered(batch, coeffs, T, costs,
+                                                 iters, min_sdf)
     return coeffs, T, costs, iters, {
         "violations_per_round": history,
         "min_sdf": min_sdf.cpu().numpy(),

@@ -1,9 +1,11 @@
-"""CSG combinators over component-form SDFs (counterpart of the ``*3``
-combinators of ``isdf_tpu/shapes/ops.py``).
+"""CSG combinators over SDF functions (counterpart of
+``isdf_tpu/shapes/ops.py``).
 
 An "SDF3" is a callable ``(px, py, pz) → d`` over broadcasting tensors;
-combinators return new callables.  ``aos`` derives the classic
-``p (..., 3) → d`` form by slicing once at the root.
+the ``*3`` combinators return new callables.  ``aos`` derives the classic
+``p (..., 3) → d`` form ("SDF") by slicing once at the root; the
+combinators without the suffix take and return that form, each the
+component-form combinator between ``_c`` and ``aos``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from isdf_torch.core.smoothing import clip, vabs, vmax, vmin
 
 SDF3 = Callable[..., torch.Tensor]
+SDF = Callable[[torch.Tensor], torch.Tensor]
 
 
 def _smooth_pair(d1, d2, k, mode: str):
@@ -171,6 +174,91 @@ def bend_linear3(f: SDF3, p0, p1, v, ease=None) -> SDF3:
     return g
 
 
-def aos(f3: SDF3) -> Callable[[torch.Tensor], torch.Tensor]:
+def aos(f3: SDF3) -> SDF:
     """Component-form SDF → classic (..., 3) API (one slice at the root)."""
     return lambda p: f3(p[..., 0], p[..., 1], p[..., 2])
+
+
+def _c(f: SDF) -> SDF3:
+    """Classic (..., 3) SDF → component form (one stack at the leaf)."""
+    return lambda x, y, z: f(torch.stack(torch.broadcast_tensors(x, y, z),
+                                         dim=-1))
+
+
+# -- the classic (..., 3) API ----------------------------------------------
+
+def translate(f: SDF, offset) -> SDF:
+    return aos(translate3(_c(f), offset))
+
+
+def scale(f: SDF, factor: float) -> SDF:
+    return aos(scale3(_c(f), factor))
+
+
+def rotate(f: SDF, R) -> SDF:
+    """Rotate the *shape* by R (query is pulled back by Rᵀ)."""
+    return aos(rotate3(_c(f), R))
+
+
+def transformed(f: SDF, R, t) -> SDF:
+    """Shape posed at rotation R, translation t."""
+    return aos(transformed3(_c(f), R, t))
+
+
+def union(*fs: SDF) -> SDF:
+    return aos(union3(*map(_c, fs)))
+
+
+def intersection(*fs: SDF) -> SDF:
+    return aos(intersection3(*map(_c, fs)))
+
+
+def difference(f: SDF, g: SDF) -> SDF:
+    return aos(difference3(_c(f), _c(g)))
+
+
+def smooth_union(f: SDF, g: SDF, k: float = 0.25) -> SDF:
+    return aos(smooth_union3(_c(f), _c(g), k))
+
+
+def smooth_intersection(f: SDF, g: SDF, k: float = 0.25) -> SDF:
+    return aos(smooth_intersection3(_c(f), _c(g), k))
+
+
+def smooth_difference(f: SDF, g: SDF, k: float = 0.25) -> SDF:
+    return aos(smooth_difference3(_c(f), _c(g), k))
+
+
+def blend(f: SDF, g: SDF, t: float = 0.5) -> SDF:
+    return aos(blend3(_c(f), _c(g), t))
+
+
+def negate(f: SDF) -> SDF:
+    return aos(negate3(_c(f)))
+
+
+def dilate(f: SDF, r: float) -> SDF:
+    return aos(dilate3(_c(f), r))
+
+
+def erode(f: SDF, r: float) -> SDF:
+    return aos(erode3(_c(f), r))
+
+
+def shell(f: SDF, thickness: float) -> SDF:
+    return aos(shell3(_c(f), thickness))
+
+
+def twist(f: SDF, k: float) -> SDF:
+    """Twist about z: rotate the xy slice by k·z."""
+    return aos(twist3(_c(f), k))
+
+
+def bend(f: SDF, k: float) -> SDF:
+    """Bend: rotate the xy slice by k·x."""
+    return aos(bend3(_c(f), k))
+
+
+def bend_linear(f: SDF, p0, p1, v, ease=None) -> SDF:
+    """Linear bend: query f(ease(t)·v + p), t the p0→p1 parameter."""
+    return aos(bend_linear3(_c(f), p0, p1, v, ease))

@@ -219,3 +219,34 @@ def icosahedron_c(px, py, pz, r):
     b = vmax(vmax(qx * n20 + qy * n21, qy * n20 + qz * n21),
              qz * n20 + qx * n21)
     return vmax(a, b) - r * n1
+
+
+# -- the classic (..., 3) API: one slice of the point axis at the root ------
+
+def _aos(f3):
+    """Component-form primitive → ``f(p (..., 3), *params) → d (...)``."""
+    def f(p, *args, **kw):
+        return f3(p[..., 0], p[..., 1], p[..., 2], *args, **kw)
+    return f
+
+
+sphere = _aos(sphere_c)
+point = _aos(point_c)
+box = _aos(box_c)
+rounded_box = _aos(rounded_box_c)
+wireframe_box = _aos(wireframe_box_c)
+torus = _aos(torus_c)
+capped_torus = _aos(capped_torus_c)
+capsule = _aos(capsule_c)
+cylinder = _aos(cylinder_c)
+capped_cylinder = _aos(capped_cylinder_c)
+rounded_cylinder = _aos(rounded_cylinder_c)
+capped_cone = _aos(capped_cone_c)
+rounded_cone = _aos(rounded_cone_c)
+ellipsoid = _aos(ellipsoid_c)
+plane = _aos(plane_c)
+octahedron = _aos(octahedron_c)
+pyramid = _aos(pyramid_c)
+tetrahedron = _aos(tetrahedron_c)
+dodecahedron = _aos(dodecahedron_c)
+icosahedron = _aos(icosahedron_c)

@@ -84,6 +84,24 @@ def pvaj_components(traj, t: torch.Tensor, n_orders: int = 3):
     return tuple(result)
 
 
+def pvaj_all(traj, t: torch.Tensor, n_orders: int = 4):
+    """pos/vel/acc[/jerk] at global times t (for a batched traj, t (B, M)),
+    each t.shape + (3,), zero-padded to 4 when n_orders < 4 (the pose map
+    reads no jerk)."""
+    return tuple(torch.stack(c, dim=-1)
+                 for c in pvaj_components(traj, t, n_orders))
+
+
+def sdf_at_time_fast(shape, traj, params, p_eva, t):
+    """Body SDF at trajectory time(s) t through :func:`pvaj_all`; p_eva
+    broadcasts against t (e.g. (P, 1, 3) against (P, K)).  Orders 0–2 only
+    (the tilt needs vel/acc, SE(2) needs pos)."""
+    pos, vel, acc, jer = pvaj_all(traj, t, n_orders=3)
+    pos3, R = fl.pose_of(pos, vel, acc, jer, params)
+    p_rel = torch.einsum("...ji,...j->...i", R, p_eva - pos3)
+    return shape.sdf(p_rel)
+
+
 def pose_components(pos, vel, acc, params):
     """Component-form pose map: 3-tuples → (pos3 3-tuple, R 9-tuple, row
     major).  FlatParams: the quadrotor tilt from the drag-augmented specific
