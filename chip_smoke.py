@@ -18,13 +18,16 @@ Phases (any failure exits non-zero):
                K1 against sweep_warm_fused_ref for RoundedCone (posed), Ball
                and CappedCone, at the slice's size, at the JAX bench's size
                and at the audit's two sizes, and for the other 17 zoo shapes
-               at the slice's size;
+               at the slice's size; at the bench's latency solve (P = 512,
+               N = 4, its second launch), bitwise;
                K2 against sweep_warm_fused_batched_ref and against K1
                launched per scenario, at B = 64 × P = 512, for CappedCone,
                CSG and Trefoil; then against its plain version and timed at
                the shapes the batched solves launch it at: warm at B = 128
-               (every scenario) and B = 4096 (five scenarios), and cold at
-               the audit's coarse_n = 512 at B = 128;
+               (every scenario) and B = 4096 (five scenarios), cold at
+               the audit's coarse_n = 512 at B = 128, and the first launch
+               of the bench's solves at B = 512 (every scenario) and
+               B = 2048 (five scenarios), bitwise;
                K4 against zoom_refine_ref at the slice's size;
                K3 against grid_sweep_warm_fused_ref on the L robot's baked
                field at the mesh slice's size (warm) and at the audit's two
@@ -41,14 +44,20 @@ Phases (any failure exits non-zero):
                the width the JAX bench runs it (CappedCone, N = 4 pieces,
                P = 512 points, max_iters = 24, chunk = 8): make_random_batch
                and batched_solve_chunked at B = 128 and B = 4096,
-               batched_solve_audited at B = 128; the launch counters are set
-               to 0 just before the B = 128 solve and read just after;
+               batched_solve_audited at B = 128, each solved once and
+               timed cold (the first call at its shapes in the process,
+               printed as cold_wall_s: phase 19's bench takes the median of
+               three after a warm call); the launch
+               counters are set to 0 just before the B = 128 solve and read
+               just after;
   4b. multi-device — parallel/mesh.py: in this process a world-1 NCCL
                group and a (1, 1) mesh, shard_batch and the B = 4096 solve,
                bitwise equal to phase 4's; then two spawned ranks sharing the
                one card (gloo; NCCL refuses two ranks on one card) at
                (dp, sp) = (2, 1) and (1, 2), B = 128: the chunked solve
-               (K2's counter set to 0 just before it in each rank), held as
+               (8 iterations in two chunks of 4, the second resumed after
+               the ranks' global_all; K2's counter set to 0 just before it
+               in each rank), held as
                phase 4 holds its own (every scenario descends) and, with
                dp = 2, bitwise to its block solved without a mesh in float32
                and float64; a float64 batched_solve(max_iters=3) through the
@@ -87,7 +96,7 @@ Phases (any failure exits non-zero):
                scenario), K4 and K3 (the L field, P = 4096) along demo 8's
                trajectory, each against its plain version and timed.
   9. lmbm    — demo 1's first back-end solve (the plan's mid-end result)
-               again under backend.optimize(method="lmbm") capped at 50
+               again under backend.optimize(method="lmbm") capped at 20
                iterations and "lbfgs" capped at 200, each audited; K1's
                counter set to 0 just before each solve and read after its
                audit;
@@ -95,7 +104,7 @@ Phases (any failure exits non-zero):
                reference_solve_golden.json, gap and slalom): the initial
                cost and gradient at the reference's x0, the swept SDF on the
                reference's optimum, 80-iteration solves (L-BFGS float32,
-               LMBM float64 held in the band; LMBM float32 printed, 40
+               LMBM float64 held in the band; LMBM float32 printed, 20
                iterations);
  11. monitor — PlannerManager.plan(monitor=OptiMonitor()) on demo 1's
                scene, equal to phase 3's plan, its breakdowns and ASCII
@@ -122,18 +131,37 @@ Phases (any failure exits non-zero):
                runs it, with a stand-in reference checkout as
                $ISDF_REFERENCE_ROOT (demo 1's map as a PCD, demo 6's L as an
                OBJ): demo 1 and demo 6 with --swept-mesh --view, demo 8,
-               closed-loop --max-time 9; each must write the JAX cli's files;
+               closed-loop --max-time 9, the four processes at once (so a
+               run's wall, printed as wall_s_four_at_once, is not what a
+               user running it alone waits); each must exit 0 and write the
+               JAX cli's files;
  18. volume kernels — after phase 8: K1 and K3 at the swept-volume mesh's
                launch (P = 65,536, cold, coarse 128, rounds 24) against
                their plain versions, bitwise, and timed.
-Phases 3–7 and 9–17 run before phase 2: a process that has run the kernel
+ 19. bench   — after phase 17: `python3 -m isdf_torch.cli bench` (the
+               benchmark harness, isdf_torch/bench.py) in its own process:
+               the JAX bench's sections at its sizes (K1 at P = 32,768 and
+               in a P = 512 solve, K2 in solves at B = 128, 512, 2048 and
+               4096 and the audited B = 128, K3 on the 64³ torus); its last
+               line, the record, checked (every key, rates above 0, every
+               scenario finite, each section's kernel launched) and printed
+               on a `bench: {...}` line; its launches per section go into
+               the kernels line.
+Phases 3–7, 9–17 and 19 run before phase 2: a process that has run the kernel
 phase's torch.profiler traces planned and solved more slowly after them
 (PERF.md §6).  With ``--profile`` it then plans once more under torch.profiler,
 solves the B = 4096 batch once more under it and plans the mesh scene once
 more under it, and prints the device's busy share of each.  Then it prints
 the card's name and power limit, one JSON line with the kernels' numbers
 (one entry per kernel and pose map, with the launches of each path that
-runs it), and as the last line {"ok": true, "device": {...}}.
+runs it; and one entry per shape the bench launches a kernel at, with the
+bench's launches there), and as the last line {"ok": true, "device": {...}}.
+Each phase prints the seconds it took as it ends, and all of them again
+on a "phases: seconds {...}" line before the card's name.  The whole run
+takes 940-1010 s of the 1200 s it is allowed, the build included (PERF.md
+§6): a phase that grows takes its time from another's depth, first the
+plain version over all 512 scenarios of the B = 512 K2 case (about 64 s),
+which would then hold five scenarios as at B = 2048.
 Without a CUDA card, or without the package beside it, it exits non-zero
 and prints no result.
 """
@@ -188,9 +216,9 @@ DEMO1 = dict(
 START, GOAL = (2.0, 2.0, 2.0), (45.0, 45.0, 3.0)
 MAX_ITERS = 200     # back-end iteration cap for the smoke run
 # LMBM's re-solve of demo 1's back end (phase 9) stalls from its first
-# iteration (ROADMAP §C1): capped at 50 iterations, not MAX_ITERS, to keep
+# iteration (ROADMAP §C1): capped at 20 iterations, not MAX_ITERS, to keep
 # the smoke's time (uncapped it runs 153 iterations, ~57 s on the H100)
-LMBM_DEMO1_ITERS = 50
+LMBM_DEMO1_ITERS = 20
 
 
 class SmokeFailure(Exception):
@@ -364,20 +392,43 @@ def phase_kernels(dev):
                 rng.uniform(0, float(T.sum()), size=len(pts_np)), **f32)
         if size_name == "slice":
             slice_case = (traj, pts, t_warm)
-        cases = [(name, conf, 10) for name, conf in shapes]
+        cases = list(shapes)
         if size_name == "slice":
-            # the other 17 zoo shapes, at the slice's size (fewer timing
-            # runs of the plain version: it takes ~0.1 s a run)
-            cases += [(name, Config(), 3) for name in SHAPE_REGISTRY
+            # the other 17 zoo shapes, at the slice's size
+            cases += [(name, Config()) for name in SHAPE_REGISTRY
                       if name not in dict(shapes)]
-        for shape_name, conf, plain_reps in cases:
+        for shape_name, conf in cases:
             shape = make_shape(shape_name, conf)
             params = fl.FlatParams.from_config(conf)
             args = kernel_inputs(torch, traj, params, pts, t_warm, coarse_n)
             kw = dict(coarse_n=coarse_n, rounds=rounds, warm_window=0.3)
-            records.append(hold_k1(shape, params, args, kw, size_name,
-                                   plain_reps))
+            records.append(hold_k1(shape, params, args, kw, size_name))
+    records.append(hold_latency_k1(dev))
     return records, slice_case
+
+
+def hold_latency_k1(dev) -> dict:
+    """K1 in the bench's latency solve (isdf_torch/bench.py section 7,
+    P = 512, N = 4): the solve's second launch, warm from the first one's
+    t*, held bitwise in t* and d* → its record."""
+    from isdf_torch import bench
+    from isdf_torch.shapes import make_shape
+    from isdf_torch.sweep import fused_zoom
+
+    sizes = bench.BenchSizes()
+    conf = bench.bench_config(sizes)
+    _, cost_and_grad, x0, tw0 = bench.latency_solve(
+        make_shape(bench.SHAPE, conf), conf, sizes, dev)
+    t_star = cost_and_grad(x0, tw0)[2]
+    calls = {}
+    with _first_calls(fused_zoom, "sweep_warm_fused", calls):
+        cost_and_grad(x0, t_star)
+    (args, kw), = calls.values()
+    rec = hold_k1(args[0], args[1], args[2:], kw, "latency512")
+    check_kernel(rec["t_equal"] == 1.0 and rec["d_equal"] == 1.0,
+                 f"K1 {rec['shape']}/latency512: t*, d* not bitwise equal "
+                 f"to the plain version's ({rec})")
+    return rec
 
 
 def in_bands(what, tk, dk, gk, tr, dr, gr):
@@ -401,7 +452,7 @@ def in_bands(what, tk, dk, gk, tr, dr, gr):
     return float(dd.max()), share, g_err, checks
 
 
-def hold_k1(shape, params, args, kw, size_name, plain_reps: int = 10):
+def hold_k1(shape, params, args, kw, size_name):
     """One K1 case against sweep_warm_fused_ref on the card → its record."""
     import torch
     from isdf_torch.sweep import fused_zoom
@@ -416,7 +467,7 @@ def hold_k1(shape, params, args, kw, size_name, plain_reps: int = 10):
     times = timed(lambda: fused_zoom.sweep_warm_fused(
         shape, params, *args, **kw), "sweep_warm_kernel", what)
     plain_ms = cuda_ms(lambda: fused_zoom.sweep_warm_fused_ref(
-        shape, params, *args, **kw), warmup=1, reps=plain_reps)
+        shape, params, *args, **kw), warmup=1, reps=3)
     planar = is_planar(params)
     bound, bound_by, ops, nbytes = k1_bound_ms(
         shape, pts.shape[0], durs.shape[0], kw["coarse_n"], kw["rounds"],
@@ -486,11 +537,11 @@ def batched_kernel_inputs(torch, shape_name, B, dev, seed, coarse_n=None,
 
 def phase_k2(dev):
     """K2 against its plain version and against per-scenario K1 launches at
-    B = 64, then against its plain version and timed at the three shapes the
-    batched solves launch it at → records."""
+    B = 64, then against its plain version and timed at the shapes the
+    batched solves launch it at (the bench's B = 128, 512, 2048, 4096 and the
+    audit) → records."""
     import torch
     from isdf_torch.sweep import fused_zoom
-    from isdf_torch.utils.flops import k1_bound_ms
 
     records = []
     for shape_name in ("CappedCone", "CSG", "Trefoil"):
@@ -519,51 +570,99 @@ def phase_k2(dev):
     # the shapes the batched solve launches K2 at: the warm sweep of a cost
     # evaluation at B = 128 and B = 4096, and the audited solve's cold sweep
     # (t_warm = 0, audit_coarse_n = 512: a 24 KB pose table per scenario,
-    # read from global memory) at B = 128
+    # read from global memory) at B = 128.  The plain version is a loop over
+    # the scenarios (~0.1 s each): all of them at B = 128; at B = 4096 the
+    # first, the last and three scenarios between
     for label, B, coarse_n, cold in (("B128", 128, None, False),
                                      ("B128/audit", 128, AUDIT_COARSE_N, True),
                                      ("B4096", 4096, None, False)):
         shape, params, args, kw = batched_kernel_inputs(
             torch, "CappedCone", B, dev, seed=2, coarse_n=coarse_n, cold=cold)
-        what = f"K2 CappedCone/{label}"
-        tk, dk, gk = fused_zoom.sweep_warm_fused_batched(
-            shape, params, *args, **kw)
-        times = timed(lambda: fused_zoom.sweep_warm_fused_batched(
-            shape, params, *args, **kw), "sweep_warm_kernel", what)
-        # the plain version is a loop over the scenarios (~50 ms each): one
-        # timed run of all of them at B = 128, whose results are the ones
-        # compared; at B = 4096 the first, the last and three scenarios
-        # between, each through the single-scenario plain version
-        if B == 128:
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            tr, dr, gr = fused_zoom.sweep_warm_fused_batched_ref(
-                shape, params, *args, **kw)
-            b.record()
-            b.synchronize()
-            plain_ms, rows = a.elapsed_time(b), slice(None)
-        else:
-            rows = [0, B // 4, B // 2, 3 * B // 4, B - 1]
-            per = [fused_zoom.sweep_warm_fused_ref(
-                shape, params, *(x[i] for x in args), **kw) for i in rows]
-            tr, dr, gr = (torch.stack(o) for o in zip(*per))
-            plain_ms = None
-        torch.cuda.synchronize()
-        max_d, share, g_err, checks = in_bands(
-            what, tk[rows], dk[rows], gk[rows], tr, dr, gr)
-        bound, bound_by, ops, nbytes = k1_bound_ms(
-            shape, BATCH_P, BATCH_N, kw["coarse_n"], kw["rounds"], B=B)
-        rec = dict(shape="CappedCone", case=label, B=B, P=BATCH_P, N=BATCH_N,
-                   coarse_n=kw["coarse_n"], rounds=kw["rounds"], cold=cold,
-                   compared_scenarios=len(tr), max_abs_d=max_d,
-                   t_share=share, max_abs_grad=g_err, **times,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                   ops=ops, bytes=nbytes)
-        records.append(rec)
-        print("K2 vs plain, timed " + json.dumps(rec), flush=True)
-        for ok, msg in checks:
-            check_kernel(ok, msg)
+        records.append(hold_k2(shape, params, args, kw, label,
+                               None if B == 128 else spread_rows(B)))
+    records += [hold_first_k2(dev, 512), hold_first_k2(dev, 2048,
+                                                       spread_rows(2048))]
     return records
+
+
+def hold_first_k2(dev, B: int, rows=None) -> dict:
+    """K2's first launch in the bench's solve at B (isdf_torch/bench.py
+    section 4: make_random_batch's seed 0, the evaluation at x0 with
+    t_warm = 0), held bitwise in t* and d* (``rows`` as in hold_k2) → its
+    record."""
+    from isdf_torch.config import Config
+    from isdf_torch.parallel import batch as pb
+    from isdf_torch.shapes import make_shape
+    from isdf_torch.sweep import fused_zoom
+
+    conf = Config(**BATCH_CONF)
+    sb = pb.make_random_batch(conf, B, N=BATCH_N, n_points=BATCH_P, seed=0,
+                              device=dev)
+    calls = {}
+    with _first_calls(fused_zoom, "sweep_warm_fused_batched", calls):
+        pb.batched_cost_and_grad(make_shape("CappedCone", conf), conf, sb,
+                                 device=dev)
+    (args, kw), = calls.values()
+    return hold_k2(args[0], args[1], args[2:], kw, f"B{B}/first", rows,
+                   exact=True)
+
+
+def spread_rows(B: int) -> list:
+    """The first, the last and three scenarios between."""
+    return [0, B // 4, B // 2, 3 * B // 4, B - 1]
+
+
+def hold_k2(shape, params, args, kw, label, rows=None, exact=False):
+    """One K2 case at a batched solve's shape against its plain version on
+    the card, and timed → its record.  ``rows`` None: every scenario,
+    through one timed run of the batched plain version; else those
+    scenarios, each through the single-scenario plain version.  With
+    ``exact``, t* and d* must equal the plain version's bit for bit."""
+    import torch
+    from isdf_torch.sweep import fused_zoom
+    from isdf_torch.utils.flops import k1_bound_ms
+
+    B, P = args[0].shape[:2]
+    N = args[4].shape[-1]
+    what = f"K2 {shape.name}/{label}"
+    tk, dk, gk = fused_zoom.sweep_warm_fused_batched(
+        shape, params, *args, **kw)
+    times = timed(lambda: fused_zoom.sweep_warm_fused_batched(
+        shape, params, *args, **kw), "sweep_warm_kernel", what)
+    if rows is None:
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        tr, dr, gr = fused_zoom.sweep_warm_fused_batched_ref(
+            shape, params, *args, **kw)
+        b.record()
+        b.synchronize()
+        plain_ms, rows = a.elapsed_time(b), slice(None)
+    else:
+        per = [fused_zoom.sweep_warm_fused_ref(
+            shape, params, *(x[i] for x in args), **kw) for i in rows]
+        tr, dr, gr = (torch.stack(o) for o in zip(*per))
+        plain_ms = None
+    torch.cuda.synchronize()
+    tk, dk, gk = tk[rows], dk[rows], gk[rows]
+    max_d, share, g_err, checks = in_bands(what, tk, dk, gk, tr, dr, gr)
+    bound, bound_by, ops, nbytes = k1_bound_ms(
+        shape, P, N, kw["coarse_n"], kw["rounds"], B=B)
+    rec = dict(shape=shape.name, case=label, B=B, P=P, N=N,
+               coarse_n=kw["coarse_n"], rounds=kw["rounds"],
+               cold=bool((args[1] == 0).all()), compared_scenarios=len(tr),
+               max_abs_d=max_d, t_share=share, max_abs_grad=g_err,
+               t_equal=float((tk == tr).float().mean()),
+               d_equal=float((dk == dr).float().mean()), **times,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+               ops=ops, bytes=nbytes)
+    print("K2 vs plain, timed " + json.dumps(rec), flush=True)
+    for ok, msg in checks:
+        check_kernel(ok, msg)
+    if exact:
+        check_kernel(rec["t_equal"] == 1.0 and rec["d_equal"] == 1.0,
+                     f"{what}: t*, d* not bitwise equal to the plain "
+                     f"version's ({rec})")
+    return rec
 
 
 def phase_k4(dev, slice_case):
@@ -639,20 +738,17 @@ def write_l_robot(dirpath: str) -> str:
     return path
 
 
-def torus_grid(torch, n: int, res: float, dev):
+def torus_grid(n: int, res: float, dev):
     """The JAX bench's torus field (bench.py:198-205: ring 0.6, tube 0.25)
     on an n³ grid of spacing res centred on the origin → GridField."""
+    from isdf_torch.bench import torus_field
     from isdf_torch.sweep.grid_zoom import GridField
 
-    origin = -0.5 * n * res
-    ax = origin + torch.arange(n, dtype=torch.float64, device=dev) * res
-    x, y, z = torch.meshgrid(ax, ax, ax, indexing="ij")
-    xy = torch.sqrt(x * x + y * y) - 0.6
-    return GridField.build(torch.sqrt(xy * xy + z * z) - 0.25,
-                           (origin,) * 3, res, dev)
+    field, origin = torus_field(n, res)
+    return GridField.build(field, origin, res, dev)
 
 
-def hold_k3(grid, params, args, kw, label, plain_reps: int = 10,
+def hold_k3(grid, params, args, kw, label, plain_reps: int = 3,
             batched: bool = False):
     """One K3 case against its plain version on the card → its record."""
     import torch
@@ -756,13 +852,11 @@ def phase_k3(dev, obj_path):
             ("L/slice", grid, warm, 128, 24),
             ("L/audit256", grid, cold, 256, 24),
             ("L/audit2048", grid, cold, 2048, 24),
-            ("torus64/bench", torus_grid(torch, 64, 0.04, dev), bench, 64,
-             12),
-            ("torus192/slice", torus_grid(torch, 192, 2.56 / 192, dev), warm,
+            ("torus64/bench", torus_grid(64, 0.04, dev), bench, 64, 12),
+            ("torus192/slice", torus_grid(192, 2.56 / 192, dev), warm,
              128, 24)):
         kw = dict(coarse_n=coarse_n, rounds=rounds, warm_window=0.3)
-        records.append(hold_k3(g, params, args, kw, label,
-                               plain_reps=3 if coarse_n > 256 else 10))
+        records.append(hold_k3(g, params, args, kw, label))
     # batched: make_random_batch's scenarios as K2's phase draws them
     _, bparams, bargs, kw = batched_kernel_inputs(torch, "CappedCone", 64,
                                                   dev, seed=1)
@@ -915,6 +1009,7 @@ def device_busy(prof, wall: float, kernel_word: str) -> dict:
     device's busy share of `wall`, and the time in kernels whose name holds
     `kernel_word`."""
     import torch
+    from isdf_torch.bench import busy_ns
 
     spans, k_ns = [], 0
     for e in prof.profiler.kineto_results.events():
@@ -923,14 +1018,7 @@ def device_busy(prof, wall: float, kernel_word: str) -> dict:
         spans.append((e.start_ns(), e.end_ns()))
         if kernel_word in e.name():
             k_ns += e.end_ns() - e.start_ns()
-    busy, end = 0, None
-    for a, b in sorted(spans):
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
+    busy = busy_ns(spans)
     if not spans:
         return {}
     return dict(wall_s=wall, device_events=len(spans),
@@ -1012,15 +1100,13 @@ def phase_batch(dev):
         sb = pb.make_random_batch(conf, B, N=BATCH_N, n_points=BATCH_P,
                                   seed=0)
         f0, g0 = pb.batched_cost_and_grad(shape, conf, sb)
-        solve(sb)                                          # warm call
-        walls = []
-        for _ in range(3):
-            fused_zoom.LAUNCHES_BATCHED = 0
-            t0 = time.perf_counter()
-            (coeffs, T, costs, iters), n_chunks = solve(sb)
-            walls.append(time.perf_counter() - t0)
-            launches = fused_zoom.LAUNCHES_BATCHED
-        wall = statistics.median(walls)
+        # one solve, timed cold (the first at this B): the bench (phase 19)
+        # times three after a warm call at every B
+        fused_zoom.LAUNCHES_BATCHED = 0
+        t0 = time.perf_counter()
+        (coeffs, T, costs, iters), n_chunks = solve(sb)
+        wall = time.perf_counter() - t0
+        launches = fused_zoom.LAUNCHES_BATCHED
         what = f"batch B={B}"
         check(tuple(coeffs.shape) == (B, BATCH_N, 6, 3)
               and tuple(T.shape) == (B, BATCH_N),
@@ -1054,7 +1140,7 @@ def phase_batch(dev):
         rec = dict(B=B, N=BATCH_N, P=BATCH_P, max_iters=BATCH_ITERS,
                    chunk=BATCH_CHUNK, chunks=n_chunks,
                    loop_trips=trips * n_chunks, k2_launches=launches,
-                   wall_s=wall, walls_s=walls, plans_per_s=B / wall,
+                   cold_wall_s=wall, cold_plans_per_s=B / wall,
                    accepted_steps_mean=float(iters.float().mean()),
                    no_accepted_step=stuck,
                    above_first_cost=int((ratio > 1.0).sum()),
@@ -1098,7 +1184,7 @@ def phase_batch(dev):
           "audited: non-finite min SDF")
     hist = audit["violations_per_round"]
     print("batch audited " + json.dumps(dict(
-        B=128, wall_s=wall, plans_per_s=128 / wall,
+        B=128, cold_wall_s=wall, cold_plans_per_s=128 / wall,
         k2_launches=fused_zoom.LAUNCHES_BATCHED,
         violations_per_round=hist, last_violations=hist[-1],
         min_sdf_min=float(audit["min_sdf"].min()),
@@ -1109,8 +1195,11 @@ def phase_batch(dev):
     return launches_main, big_case, solved
 
 
-# the multi-device phase (4b): two ranks share the one card
+# the multi-device phase (4b): two ranks share the one card; their chunked
+# solves run 8 iterations in two chunks of 4, so the ranks decide together
+# (global_all) whether to go on and resume the lockstep state in the second
 MULTI_B = 128
+MULTI_ITERS, MULTI_CHUNK = 8, 4
 RANKS_TIMEOUT_S = 300
 # an sp-sharded evaluation against the unsharded one: the point sum's
 # float32 reduction order, the cost relative to itself and the gradient to
@@ -1192,10 +1281,12 @@ def _kernel_case_ok(c) -> bool:
 def multidevice_rank(rank, sp, obj_path, outdir):
     """One of two ranks on the one card (spawned by phase_multidevice, gloo):
     the bench's batch (B = 128, P = 512) on a (2/sp, sp) mesh through
-    batched_solve_chunked, K2's counter set to 0 just before the solve and
-    read just after; one cold evaluation's t*, cost and gradient against
-    the unsharded evaluation's; the solve, in float32 and in float64,
-    against the solve of this rank's scenarios without a mesh; a float64
+    batched_solve_chunked (MULTI_ITERS iterations in chunks of MULTI_CHUNK,
+    both run), K2's counter set to 0
+    just before the solve and read just after; one cold evaluation's t*,
+    cost and gradient against the unsharded evaluation's; the solve, in
+    float32 and in float64, against the solve of this rank's scenarios
+    without a mesh; a float64
     batched_solve(max_iters=3) on the mesh against the unsharded one
     through the non-fused sweep (float64) and through K2 (float32); with
     dp = 2 the solve of the batch rolled by one scenario; the L robot's
@@ -1223,7 +1314,7 @@ def multidevice_rank(rank, sp, obj_path, outdir):
                               seed=0, device=dev)
     local = pb.shard_batch(sb, mesh)
     rows, cols = mesh.block(MULTI_B, "dp"), mesh.block(BATCH_P, "sp")
-    kw = dict(max_iters=BATCH_ITERS, chunk=BATCH_CHUNK)
+    kw = dict(max_iters=MULTI_ITERS, chunk=MULTI_CHUNK)
 
     k2_calls = {}
     with _first_calls(fused_zoom, "sweep_warm_fused_batched",
@@ -1348,8 +1439,7 @@ def phase_multidevice(solved, obj_path) -> dict:
         and batched_solve_chunked at B = 4096, bitwise equal to phase 4's
         solve without a mesh;
     (b) two spawned ranks on the one card, gloo (NCCL refuses two ranks on
-        one card), at (dp, sp) = (2, 1) and (1, 2): multidevice_rank; each
-        run's distance from phase 4's B = 128 solve is printed;
+        one card), at (dp, sp) = (2, 1) and (1, 2): multidevice_rank;
     (c) the ranks of isdf_torch.parallel.dryrun.dryrun(world=2, sp=2) on
         the card, K2 and K3 held at each shape they launch at:
         dryrun_rank_held.
@@ -1367,7 +1457,8 @@ def phase_multidevice(solved, obj_path) -> dict:
     shape = make_shape("CappedCone", conf)
     paths = {"K2": {}, "K3": {}}
     cases = []
-    trips = 2 * BATCH_CHUNK + 8
+    multi_trips = 2 * MULTI_CHUNK + 8
+    multi_chunks = MULTI_ITERS // MULTI_CHUNK
 
     B = 4096
     with tempfile.TemporaryDirectory() as tmp:
@@ -1407,7 +1498,6 @@ def phase_multidevice(solved, obj_path) -> dict:
           "card(s); two gloo ranks share cuda:0", flush=True)
     check(mode.splitlines()[:1] == ["Default"],
           f"the card's compute mode {mode!r} refuses a second process")
-    ref128 = [t.cpu().numpy() for t in solved[MULTI_B][:4]]
     for sp in (1, 2):
         label = f"{2 // sp}x{sp}"
         with tempfile.TemporaryDirectory() as outdir:
@@ -1419,16 +1509,10 @@ def phase_multidevice(solved, obj_path) -> dict:
                     for r in range(2)]
             outs = [dict(np.load(os.path.join(outdir, f"rank{r}.npz")))
                     for r in range(2)]
-        rel = np.abs(outs[0]["costs"] - ref128[2]) / np.abs(ref128[2])
         summary = dict(
             mesh=label, B=MULTI_B, spawn_wall_s=spawn_s,
             ranks_equal=[bool(np.array_equal(outs[0][k], outs[1][k]))
-                         for k in ("coeffs", "T", "costs", "iters")],
-            phase4=dict(costs_equal=int((outs[0]["costs"] == ref128[2]).sum()),
-                        iters_equal=int((outs[0]["iters"] == ref128[3]).sum()),
-                        max_rel_cost=float(rel.max()),
-                        median_rel_cost=float(np.median(rel)),
-                        within_1e_4=int((rel <= 1e-4).sum())))
+                         for k in ("coeffs", "T", "costs", "iters")])
         for r in recs:
             print(f"multidevice {label} rank {r['rank']} " + json.dumps(r),
                   flush=True)
@@ -1454,10 +1538,9 @@ def phase_multidevice(solved, obj_path) -> dict:
             check(r["solve3_float64"]["within_band"],
                   f"{rw}: the float64 three-iteration solve leaves the "
                   f"unsharded one's band: {r['solve3_float64']}")
-            check(r["k2_launches"] > 0
-                  and (r["k2_launches"] - 1) % (2 * trips) == 0,
+            check(r["k2_launches"] == 1 + 2 * multi_trips * multi_chunks,
                   f"{rw}: {r['k2_launches']} K2 launches, not 1 + 2 · "
-                  f"{trips} a chunk")
+                  f"{multi_trips} in each of {multi_chunks} chunks")
             check(r["k3_launches"] > 0, f"{rw}: K3 never launched")
             check(r["eval"]["t_star_equal"], f"{rw}: t* of one evaluation "
                                              "differs from the unsharded")
@@ -2126,9 +2209,9 @@ GOLDEN_CONF = dict(
     safety_hor=0.866, mem_size=16, past=10, relCostTol=1e-16,
     sweep_coarse_samples=128, sweep_refine_rounds=24)
 GOLDEN_ITERS = 80
-# LMBM in float32, printed beside the held solves, not held: capped at 40
+# LMBM in float32, printed beside the held solves, not held: capped at 20
 # iterations to keep the smoke's time
-GOLDEN_PRINTED_ITERS = 40
+GOLDEN_PRINTED_ITERS = 20
 GOLDEN_F0_RTOL = 1e-4      # the initial cost (tests/test_parity_reference.py)
 GOLDEN_BAND = (0.6, 1.67)  # final cost over the reference's
 GOLDEN_SDF_TOL = 5e-3      # the swept SDF on the reference's optimum
@@ -2716,17 +2799,19 @@ SCENE_LAYERS = ["map voxels", "A* path", "trajectory", "poses",
 
 def phase_cli(ref_root: str, workdir: str) -> dict:
     """`python3 -m isdf_torch.cli` as a user runs it, with the stand-in
-    reference checkout as $ISDF_REFERENCE_ROOT: each run must exit 0 and
-    write the files the JAX package's cli writes for its flags →
-    {label: record}."""
+    reference checkout as $ISDF_REFERENCE_ROOT, the four runs at once (each
+    wall is then one of four processes sharing the card and the host): each
+    run must exit 0 and write the files the JAX package's cli writes for its
+    flags → {label: record}."""
     import re
+    from concurrent.futures import ThreadPoolExecutor
 
     from isdf_torch.shapes.mesh import load_obj
 
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, ISDF_REFERENCE_ROOT=ref_root)
-    out = {}
-    for label, args in CLI_RUNS:
+
+    def run(label, args):
         dest = os.path.join(workdir, "cli", label.replace(" ", "_"))
         t0 = time.perf_counter()
         try:
@@ -2735,14 +2820,21 @@ def phase_cli(ref_root: str, workdir: str) -> dict:
                  dest], cwd=here, env=env, capture_output=True, text=True,
                 timeout=300)
         except subprocess.TimeoutExpired:
-            raise SmokeFailure(f"cli {label}: no exit within 300 s")
-        wall = time.perf_counter() - t0
+            return label, args, dest, None, 300.0
+        return label, args, dest, proc, time.perf_counter() - t0
+
+    # the runs share the card and the host, all started together
+    with ThreadPoolExecutor(len(CLI_RUNS)) as pool:
+        runs = list(pool.map(lambda r: run(*r), CLI_RUNS))
+    out = {}
+    for label, args, dest, proc, wall in runs:
+        check(proc is not None, f"cli {label}: no exit within 300 s")
         check(proc.returncode == 0,
               f"cli {label}: exit {proc.returncode}: {proc.stderr[-3000:]}")
         with open(os.path.join(dest, "metrics.json")) as f:
             m = json.load(f)
-        rec = dict(run=label, args=args, rc=proc.returncode, wall_s=wall,
-                   files=sorted(os.listdir(dest)))
+        rec = dict(run=label, args=args, rc=proc.returncode,
+                   wall_s_four_at_once=wall, files=sorted(os.listdir(dest)))
         if label == "closed-loop":
             rec.update({k: m[k] for k in ("reached", "replans",
                                           "min_body_sdf", "replan_p50_s")})
@@ -2776,6 +2868,92 @@ def phase_cli(ref_root: str, workdir: str) -> dict:
     return out
 
 
+# the bench (isdf_torch/bench.py) as a user runs it, in its own process; its
+# record's keys are the JAX bench's (bench.py:292-316, the roofline's vpu_*
+# renamed fp32_*) and the port's own
+BENCH_TIMEOUT_S = 600
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "vs_ref_desktop_est",
+    "ref_evals_per_s_measured", "sweep_point_queries_per_s",
+    "flops_per_query", "fp32_tflops", "fp32_util", "sweep_mqps_spread",
+    "plans_per_s_per_chip", "plans_per_s_audited", "grid_queries_per_s",
+    "plans_scaling", "plans_scaling_spread", "peak_host_rss_mb",
+    "peak_device_mb", "p50_plan_latency_ms", "plan_latency_pipelined_ms",
+    "p50_device_ms", "plan_iters", "device", "card", "launches",
+    "finite_scenarios")
+BENCH_BASELINE = ("vs_baseline", "vs_ref_desktop_est",
+                  "ref_evals_per_s_measured")
+# the one kernel each section of the bench launches
+BENCH_KERNELS = {"sweep": "K1", "audited": "K2", "grid": "K3",
+                 "latency": "K1"}
+
+
+def phase_bench() -> dict:
+    """`python3 -m isdf_torch.cli bench` in its own process: it must exit 0
+    and print as its last line the record with every key, null baseline
+    fields, positive finite rates, times and memory, every scenario of
+    every solve finite, and each section's launches of its kernel alone
+    (counted by the bench from its own start) → the record."""
+    import torch
+    from isdf_torch import bench
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "isdf_torch.cli", "bench"], cwd=here,
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"bench: no exit within {BENCH_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"bench: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    print("bench: " + json.dumps(rec), flush=True)
+    print(f"bench: the process took {wall:.2f} s", flush=True)
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    check(not missing, f"bench: keys missing {missing}")
+    check(all(rec[k] is None for k in BENCH_BASELINE),
+          "bench: a baseline field is not null")
+    sizes = bench.BenchSizes()
+    Bs = [str(B) for B in sizes.batch_sizes]
+    check(sorted(rec["plans_scaling"]) == sorted(Bs)
+          and sorted(rec["plans_scaling_spread"]) == sorted(Bs),
+          f"bench: plans_scaling over {sorted(rec['plans_scaling'])}")
+    rates = [rec[k] for k in (
+        "value", "sweep_point_queries_per_s", "flops_per_query",
+        "fp32_tflops", "fp32_util", "plans_per_s_per_chip",
+        "plans_per_s_audited", "grid_queries_per_s", "peak_host_rss_mb",
+        "peak_device_mb", "p50_plan_latency_ms", "plan_latency_pipelined_ms",
+        "p50_device_ms")] + rec["sweep_mqps_spread"] + [
+        v for B in Bs for v in [rec["plans_scaling"][B],
+                                *rec["plans_scaling_spread"][B]]]
+    check(all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+              for v in rates), f"bench: a rate, time or size is not "
+                               f"positive and finite: {rates}")
+    want = {**{B: int(B) for B in Bs}, "audited": sizes.audit_B}
+    check(rec["finite_scenarios"] == want,
+          f"bench: finite scenarios {rec['finite_scenarios']}, not {want}")
+    launches = rec["launches"]
+    sections = {**{k: launches[k] for k in BENCH_KERNELS},
+                **{f"plans_scaling {B}": launches["plans_scaling"][B]
+                   for B in Bs}}
+    for name, counts in sections.items():
+        kernel = BENCH_KERNELS.get(name, "K2")
+        check(list(counts) == [kernel] and counts[kernel] > 0,
+              f"bench: section {name} launched {counts}, not {kernel} alone")
+    if not os.environ.get("ISDF_PROFILE"):
+        want = 1 + sizes.sweep_repeats * sizes.sweep_calls
+        check(launches["sweep"]["K1"] == want,
+              f"bench: {launches['sweep']['K1']} K1 launches in the sweep "
+              f"section, not {want}")
+    check(launches["grid"]["K3"] == 1 + sizes.grid_calls,
+          f"bench: {launches['grid']['K3']} K3 launches in the grid section")
+    check(rec["device"] == torch.cuda.get_device_name(0),
+          f"bench: device {rec['device']!r}")
+    return rec
+
+
 def phase_volume_kernels(dev, pm, traj, pm_mesh, traj_mesh):
     """K1 and K3 at the swept-volume mesh's launch, after the profiler
     traces: the first 65,536-voxel chunk of demo 1's volume (RoundedCone
@@ -2801,15 +2979,14 @@ def phase_volume_kernels(dev, pm, traj, pm_mesh, traj_mesh):
         cold = torch.zeros_like(pts[:, 0])
         if label == "K1":
             args = kernel_inputs(torch, tr, man.params, pts, cold, 128)
-            rec = hold_k1(man.shape, man.params, args, kw, "volume65536",
-                          plain_reps=3)
+            rec = hold_k1(man.shape, man.params, args, kw, "volume65536")
             exact = rec["t_equal"] == 1.0 and rec["d_equal"] == 1.0
         else:
             durs = tr.durations.contiguous()
             args = (pts, cold, (torch.cumsum(durs, 0) - durs).contiguous(),
                     durs, tr.coeffs.contiguous())
             rec = hold_k3(man.shape.grid, man.params, args, kw,
-                          "L/volume65536", plain_reps=3)
+                          "L/volume65536")
             exact = (rec["t_equal"] == 1.0 and rec["d_equal"] == 1.0
                      and rec["grad_equal"] == 1.0)
         check_kernel(exact, f"{label} volume65536: not bitwise equal to its "
@@ -2818,11 +2995,27 @@ def phase_volume_kernels(dev, pm, traj, pm_mesh, traj_mesh):
     return recs
 
 
+# seconds each phase took, printed as it ends and once more at the end
+PHASE_S = {}
+
+
+def timed_phase(fn, *args):
+    """fn(*args), its seconds kept in PHASE_S under the phase's name."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        name = fn.__name__.removeprefix("phase_")
+        PHASE_S[name] = time.perf_counter() - t0
+        print(f"{name}: the phase took {PHASE_S[name]:.1f} s", flush=True)
+
+
 def kernel_line(name, replaces, launches, max_abs_err, rec, pose, paths,
-                source="isdf_torch/csrc/sweep_warm.cu"):
+                source="isdf_torch/csrc/sweep_warm.cu", case=None):
     """One kernel and pose map of the kernels line: ``launches`` the sum of
-    the counts its paths read (``paths``: {path: launches})."""
-    return {
+    the counts its paths read (``paths``: {path: launches}); ``case`` names
+    the shape of a bench entry, whose numbers are those of its case."""
+    line = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "pose": pose,
         "launches": launches, "launches_by_path": paths,
@@ -2831,6 +3024,45 @@ def kernel_line(name, replaces, launches, max_abs_err, rec, pose, paths,
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": None,
     }
+    if case is not None:
+        line["case"] = case
+    return line
+
+
+def bench_lines(bench_rec, k1_recs, k2_recs, k3_recs) -> list:
+    """The kernels line's entries of the bench's shapes: each with its case's
+    numbers and the launches the bench's section made at that shape."""
+    L = bench_rec["launches"]
+    k1 = {r["size"]: r for r in k1_recs if r["shape"] == "CappedCone"}
+    k2 = {r["case"]: r for r in k2_recs if "case" in r}
+    k3 = {r["case"]: r for r in k3_recs}
+    # K2's case at each B of the bench's scaling
+    k2_case = {"128": "B128", "512": "B512/first", "2048": "B2048/first",
+               "4096": "B4096"}
+    cases = [
+        ("sweep_warm_fused", ":419", k1["bench"], "sweep P = 32768",
+         {"cli bench: sweep": L["sweep"]["K1"]}),
+        ("sweep_warm_fused", ":419", k1["latency512"],
+         "latency solve P = 512",
+         {"cli bench: latency": L["latency"]["K1"]}),
+        *(("sweep_warm_fused_batched", ":458", k2[k2_case[B]],
+           f"plans_scaling B = {B}",
+           {f"cli bench: plans_scaling {B}": n["K2"]})
+          for B, n in L["plans_scaling"].items()),
+        ("sweep_warm_fused_batched", ":458", k2["B128/audit"],
+         "audited B = 128, audit coarse 512",
+         {"cli bench: audited": L["audited"]["K2"]}),
+    ]
+    lines = [kernel_line(name, "isdf_tpu/sweep/pallas_zoom.py" + line,
+                         sum(paths.values()), rec["max_abs_d"], rec, "flat",
+                         paths, case=case)
+             for name, line, rec, case, paths in cases]
+    lines.append(kernel_line(
+        "grid_sweep_warm_fused", "isdf_tpu/sweep/pallas_grid_zoom.py:314",
+        L["grid"]["K3"], k3["torus64/bench"]["max_abs_d"],
+        k3["torus64/bench"], "flat", {"cli bench: grid": L["grid"]["K3"]},
+        source="isdf_torch/csrc/grid_sweep.cu", case="grid torus 64³"))
+    return lines
 
 
 def main() -> int:
@@ -2854,9 +3086,10 @@ def main() -> int:
         t0 = time.perf_counter()
         libs = fused_zoom.compile_jobs(fused_zoom.build_jobs()
                                        + grid_zoom.build_jobs())
+        PHASE_S["build"] = time.perf_counter() - t0
         print(f"build: K1, K2 and K4 for {len(libs) - 1} body-SDF kinds, "
               f"and K3 ({len(libs)} libraries, built in parallel) in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
+              f"{PHASE_S['build']:.2f} s", flush=True)
         # what ptxas reports: [kernel, registers, spill stores, spill loads
         # (bytes), stack frame (bytes)] per library
         print("build: ptxas " + json.dumps({
@@ -2867,30 +3100,33 @@ def main() -> int:
         ref_root = write_reference_root(workdir.name, obj_path)
         os.environ["ISDF_REFERENCE_ROOT"] = ref_root
         # the timed paths first, the kernel phase's profiler traces after
-        plan_m, k1_launches, pm, traj, solve1 = phase_plan(dev)
-        k4_launches = phase_refine(pm, traj)
-        k2_launches, batch_case, batch_solved = phase_batch(dev)
-        multi = phase_multidevice(batch_solved, obj_path)
-        _, k3_launches, pm_mesh, traj_mesh = phase_mesh_plan(dev, obj_path)
-        phase_mesh_batch(dev, pm_mesh.shape)
-        planar = phase_planar(dev)
-        fly = phase_fly(dev)
-        planar_paths = phase_planar_paths(dev, planar, obj_path)
-        k1_lmbm = phase_lmbm(pm, solve1)
-        k1_golden = phase_golden(dev)
-        k1_monitor = phase_monitor(pm, plan_m, solve1)
-        phase_non_fused(pm, traj, pm_mesh, traj_mesh, obj_path)
-        k1_demos = phase_run_demo(planar)
-        swept = phase_swept(pm, traj, pm_mesh, traj_mesh)
-        k1_monitor_demo = phase_monitor_demo(workdir.name, dev)
-        phase_sim(pm, dev)
-        phase_cli(ref_root, workdir.name)
-        k1_recs, slice_case = phase_kernels(dev)
-        k2_recs = phase_k2(dev)
-        k4_recs = phase_k4(dev, slice_case)
-        k3_recs = phase_k3(dev, obj_path)
-        planar_recs = phase_planar_kernels(dev, planar, obj_path)
-        volume_recs = phase_volume_kernels(dev, pm, traj, pm_mesh, traj_mesh)
+        plan_m, k1_launches, pm, traj, solve1 = timed_phase(phase_plan, dev)
+        k4_launches = timed_phase(phase_refine, pm, traj)
+        k2_launches, batch_case, batch_solved = timed_phase(phase_batch, dev)
+        multi = timed_phase(phase_multidevice, batch_solved, obj_path)
+        _, k3_launches, pm_mesh, traj_mesh = timed_phase(
+            phase_mesh_plan, dev, obj_path)
+        timed_phase(phase_mesh_batch, dev, pm_mesh.shape)
+        planar = timed_phase(phase_planar, dev)
+        fly = timed_phase(phase_fly, dev)
+        planar_paths = timed_phase(phase_planar_paths, dev, planar, obj_path)
+        k1_lmbm = timed_phase(phase_lmbm, pm, solve1)
+        k1_golden = timed_phase(phase_golden, dev)
+        k1_monitor = timed_phase(phase_monitor, pm, plan_m, solve1)
+        timed_phase(phase_non_fused, pm, traj, pm_mesh, traj_mesh, obj_path)
+        k1_demos = timed_phase(phase_run_demo, planar)
+        swept = timed_phase(phase_swept, pm, traj, pm_mesh, traj_mesh)
+        k1_monitor_demo = timed_phase(phase_monitor_demo, workdir.name, dev)
+        timed_phase(phase_sim, pm, dev)
+        timed_phase(phase_cli, ref_root, workdir.name)
+        bench_rec = timed_phase(phase_bench)
+        k1_recs, slice_case = timed_phase(phase_kernels, dev)
+        k2_recs = timed_phase(phase_k2, dev)
+        k4_recs = timed_phase(phase_k4, dev, slice_case)
+        k3_recs = timed_phase(phase_k3, dev, obj_path)
+        planar_recs = timed_phase(phase_planar_kernels, dev, planar, obj_path)
+        volume_recs = timed_phase(
+            phase_volume_kernels, dev, pm, traj, pm_mesh, traj_mesh)
         check(not KERNEL_FAILURES, "; ".join(KERNEL_FAILURES))
         if "--profile" in sys.argv[1:]:
             phase_profile(pm, batch_case, pm_mesh, planar, dev)
@@ -2969,7 +3205,9 @@ def main() -> int:
                     planar_recs["K3"][0], "planar",
                     {"audit_planar": planar_paths["K3"]},
                     source="isdf_torch/csrc/grid_sweep.cu"),
+        *bench_lines(bench_rec, k1_recs, k2_recs, k3_recs),
     ]
+    print("phases: seconds " + json.dumps(PHASE_S), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)

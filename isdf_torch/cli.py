@@ -2,18 +2,19 @@
 ``roslaunch plan_manager demoN.launch`` + RViz (ref
 src/plan_manager/launch/demo*.launch): runs a demo scenario and writes the
 trajectory CSV, the A* path, the swept-volume mesh OBJ, the HTML scene, the
-monitor's artifacts and a metrics JSON into an output directory; or flies
-the closed loop among moving obstacles.
+monitor's artifacts and a metrics JSON into an output directory; flies
+the closed loop among moving obstacles; or runs the benchmark harness
+(``isdf_torch/bench.py``, the counterpart of the JAX package's ``bench``).
 
     python -m isdf_torch.cli demo 1 --out /tmp/demo1 --iters 60
     python -m isdf_torch.cli closed-loop --out /tmp/cl
     python -m isdf_torch.cli demo 6 --fast --device cpu
+    python -m isdf_torch.cli bench
 
 Everything runs on ``--device`` (default ``cuda``: the card, or an error
 where there is none); ``--device cpu`` runs the kernels' plain versions.
 Demos 1–6 read their assets from the reference checkout at
-``$ISDF_REFERENCE_ROOT``.  The JAX package's ``bench`` subcommand (the TPU
-harness) has no counterpart yet.
+``$ISDF_REFERENCE_ROOT``.
 """
 
 from __future__ import annotations
@@ -96,6 +97,12 @@ def _cmd_demo(args):
     with open(os.path.join(args.out, "metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2, default=str)
     print(json.dumps(metrics, default=str))
+
+
+def _cmd_bench(args):
+    from isdf_torch import bench
+
+    bench.main(device=args.device)
 
 
 def _cmd_closed_loop(args):
@@ -181,6 +188,11 @@ def main(argv=None):
     c.add_argument("--seed", type=int, default=0)
     c.add_argument("--device", **device)
     c.set_defaults(fn=_cmd_closed_loop)
+
+    b = sub.add_parser("bench", help="the benchmark harness: one JSON line "
+                                     "(isdf_torch/bench.py)")
+    b.add_argument("--device", **device)
+    b.set_defaults(fn=_cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

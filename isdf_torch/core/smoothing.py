@@ -36,6 +36,13 @@ def vabs(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 0.0, -x, x)
 
 
+def sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(x) for x ≥ 0, with slope 0 at x = 0 where torch.sqrt's is
+    infinite (times a zero upstream gradient, NaN); the same values."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def smoothed_l1(x: torch.Tensor, mu: float) -> torch.Tensor:
     """C¹ hinge: 0 for x≤0, cubic blend on (0, μ), linear x − μ/2 beyond."""
     xc = clip(x, 0.0, mu)

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from isdf_torch.core.smoothing import clip, vabs, vmax, vmin
+from isdf_torch.core.smoothing import clip, sqrt0, vabs, vmax, vmin
 
 _EPS = 1e-12
 
@@ -139,7 +139,9 @@ def capped_cone_c(px, py, pz, a, b, ra, rb):
     cbx = x - ra - f * rba
     cby = paba - f
     s = _where((cbx < 0.0) & (cay < 0.0), -1.0, 1.0, x)
-    d = torch.sqrt(
+    # d = 0 on the surface (exactly so on the flat caps): the clamp below
+    # holds, and the gradient is 0, as the kernel's dual numbers give it
+    d = sqrt0(
         vmin(cax * cax + cay * cay * baba, cbx * cbx + cby * cby * baba))
     return s * torch.sqrt(vmax(d, _EPS)) / baba
 

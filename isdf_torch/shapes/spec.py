@@ -22,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from isdf_torch.core.smoothing import clip, vabs, vmax, vmin
+from isdf_torch.core.smoothing import clip, sqrt0, vabs, vmax, vmin
 
 EPS = 1e-12
 MAX_PARAMS = 24
@@ -215,7 +215,7 @@ def _capped_cone(p, x, y, z):
     cby = paba - f
     s = torch.where((cbx < 0.0) & (cay < 0.0), torch.full_like(xx, -1.0),
                     torch.full_like(xx, 1.0))
-    d = torch.sqrt(
+    d = sqrt0(
         vmin(cax * cax + cay * cay * baba, cbx * cbx + cby * cby * baba))
     return s * torch.sqrt(vmax(d, EPS)) / baba
 

@@ -96,5 +96,5 @@ def test_default_device_is_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["closed-loop", "--out", str(tmp_path / "cl")])
-    with pytest.raises(SystemExit):
-        cli.main(["bench"])          # no bench subcommand in the port yet
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["bench"])

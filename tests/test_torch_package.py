@@ -34,6 +34,7 @@ def test_import_leaves_jax_and_isdf_tpu_unloaded():
         "from isdf_torch.viz import swept_mesh, export, html_view, live_view\n"
         "from isdf_torch.plan import goals\n"
         "from isdf_torch.parallel import mesh, dryrun\n"
+        "from isdf_torch import bench\n"
         "pm = PlannerManager(Config(), shape_name='Ball', device='cpu')\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'isdf_tpu')]\n"

@@ -101,3 +101,28 @@ def test_shapes_without_device_spec():
     assert (specs["SmoothDifference"].kind
             == specs["SmoothIntersection"].kind
             == specs["SmoothIntersection_big"].kind)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_capped_cone_gradient_on_its_cap(dtype):
+    """A point on a flat cap (paba = 0 inside the radius: the squared
+    distance the reference's metric takes the root of is exactly 0): the
+    value of JAX's CappedCone, and a finite gradient, 0 as the kernel's dual
+    numbers give it, in the zoo closure and in the device description's
+    plain form.  jax.grad gives NaN there (sqrt's infinite slope times the
+    clamp's 0), and through the swept penalty it made a scenario's whole
+    cost gradient NaN (the bench's B = 512 batch, scenario 304, float32)."""
+    p = np.array([[0.5, 0.0, -1.0], [0.5, 0.0, -1.5]])
+    ts = make_shape("CappedCone", Config())
+    js = jmake_shape("CappedCone", JConfig())
+    pt = torch.as_tensor(p, dtype=dtype)
+    np.testing.assert_allclose(ts.sdf(pt).numpy(),
+                               np.asarray(js.sdf(jnp.asarray(p))),
+                               rtol=1e-6)
+    g = ts.grad(pt)
+    assert torch.equal(g[0], torch.zeros(3, dtype=dtype))
+    assert torch.isfinite(g).all() and g[1, 2] < 0
+    q = pt.clone().requires_grad_(True)
+    d = spec_sdf3(ts.spec, q[:, 0], q[:, 1], q[:, 2])
+    (gs,) = torch.autograd.grad(d.sum(), q)
+    torch.testing.assert_close(gs, g)
