@@ -10,6 +10,7 @@ hand-written adjoint.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -106,15 +107,22 @@ def energy(coeffs, T, s: int = 3) -> torch.Tensor:
     (a 0-d tensor for one trajectory, (B,) for a batch)."""
     dtype, dev = T.dtype, T.device
     nc = 2 * s
-    fact = torch.tensor(
-        [math.factorial(m + s) / math.factorial(m) for m in range(s)],
-        dtype=dtype, device=dev)
+    fact = _energy_fact(s, dtype, dev)
     g = coeffs[..., s:nc, :] * fact[:, None]                 # (..., N, s, 3)
     m = torch.arange(s, device=dev)
     mn = (m[:, None] + m[None, :] + 1).to(dtype)               # (s, s)
     w = torch.pow(T[..., None, None], mn) / mn
     gram = torch.einsum("...md,...kd->...mk", g, g)
     return sum_last(gram * w, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _energy_fact(s: int, dtype, device) -> torch.Tensor:
+    """(m+s)!/m! for m < s on the device, copied there once (a copy at each
+    call would make the host wait for the device)."""
+    return torch.tensor(
+        [math.factorial(m + s) / math.factorial(m) for m in range(s)],
+        dtype=dtype, device=device)
 
 
 def sum_last(x: torch.Tensor, n: int) -> torch.Tensor:

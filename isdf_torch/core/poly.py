@@ -34,15 +34,21 @@ def beta(s: torch.Tensor, order: int, n_coef: int = 6) -> torch.Tensor:
 
     Powers come from iterated products, not ``pow``, so the derivative of s⁰
     stays finite at s = 0."""
-    fact, powr = deriv_tables(n_coef)
-    order = min(order, n_coef)
+    f, idx = _beta_tables(min(order, n_coef), n_coef, s.dtype, s.device)
     pows = [torch.ones_like(s)]
     for _ in range(n_coef - 1):
         pows.append(pows[-1] * s)
     P = torch.stack(pows, dim=-1)
-    f = torch.as_tensor(fact[order], dtype=s.dtype, device=s.device)
-    idx = torch.as_tensor(powr[order], device=s.device)
     return f * P[..., idx]
+
+
+@functools.lru_cache(maxsize=None)
+def _beta_tables(order: int, n_coef: int, dtype, device):
+    """Row ``order`` of deriv_tables on the device, copied there once (a
+    copy at each call would make the host wait for the device)."""
+    fact, powr = deriv_tables(n_coef)
+    return (torch.as_tensor(fact[order], dtype=dtype, device=device),
+            torch.as_tensor(powr[order], device=device))
 
 
 def take_pieces(x: torch.Tensor, idx: torch.Tensor, batched: bool):

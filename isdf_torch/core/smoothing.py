@@ -9,12 +9,25 @@ zoom's clipped candidates and the piece-local times often do.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 
+@functools.lru_cache(maxsize=256)
+def _scalar(v, sign: float, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
+
 def _like(x: torch.Tensor, v) -> torch.Tensor:
+    """v as a 0-d tensor beside x.  Made once per value, dtype and device
+    (the sign keys ±0 apart): a fresh copy to the card at each call would
+    make the host wait for the device."""
     if isinstance(v, torch.Tensor):
         return v
+    if isinstance(v, (int, float)):
+        return _scalar(v, math.copysign(1.0, v), x.dtype, x.device)
     return torch.as_tensor(v, dtype=x.dtype, device=x.device)
 
 

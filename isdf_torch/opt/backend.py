@@ -14,6 +14,11 @@ evaluation:
 where SV is the swept-volume SDF at the per-point argmin time t*,
 warm-started across outer iterations and frozen in the gradient (envelope
 theorem).  All gradients come from autograd through this scalar.
+
+Each evaluation is an ``obs`` span, ``back_end.eval``, with its parts as
+children: ``eval.traj`` (MINCO, energy, time), ``eval.dyn`` (the integral
+penalties), ``eval.sweep`` (the sweep kernel and the re-evaluation at t*)
+and ``eval.backward`` (the gradient).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from isdf_torch.opt import lbfgs, lmbm
 from isdf_torch.opt.attitude import attitude_penalty, pad_attitude_refs
 from isdf_torch.parallel.mesh import copy_to_sp, reduce_from_sp
 from isdf_torch.sweep.sweep_sdf import sweep_sdf_warm
+from isdf_torch.utils import obs
 
 
 @dataclass(frozen=True)
@@ -163,25 +169,29 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
         raise ValueError("the attitude term takes one scenario, not a batch")
 
     def raw_cost(x, t_warm):
-        traj, T, q = build_traj(x, N, head, tail)
-        e = minco.energy(traj.coeffs, T)
-        t_cost = w.rho * minco.sum_last(T, 1)
-        dyn = integral_penalty(traj, params, w, integral_res)
-        if att is not None and weight_ar > 0.0:
-            dyn = dyn + attitude_penalty(
-                traj, params, att, weight_ar, w.smooth_fac, integral_res,
-                bridge=bridge)
-        safety, t_star = swept_penalty(
-            shape, traj, params, w, points, mask, t_warm, coarse_n,
-            refine_rounds, sp_group)
+        with obs.span("eval.traj"):
+            traj, T, q = build_traj(x, N, head, tail)
+            e = minco.energy(traj.coeffs, T)
+            t_cost = w.rho * minco.sum_last(T, 1)
+        with obs.span("eval.dyn"):
+            dyn = integral_penalty(traj, params, w, integral_res)
+            if att is not None and weight_ar > 0.0:
+                dyn = dyn + attitude_penalty(
+                    traj, params, att, weight_ar, w.smooth_fac, integral_res,
+                    bridge=bridge)
+        with obs.span("eval.sweep"):
+            safety, t_star = swept_penalty(
+                shape, traj, params, w, points, mask, t_warm, coarse_n,
+                refine_rounds, sp_group)
         total = e + t_cost + dyn + safety
         return total, (t_star, CostBreakdown(total, e, t_cost, dyn, safety))
 
     def value_and_grad(x, t_warm):
-        with torch.enable_grad():
+        with obs.span("back_end.eval"), torch.enable_grad():
             xg = x.detach().requires_grad_(True)
             f, (t_star, bd) = raw_cost(xg, t_warm)
-            (g,) = torch.autograd.grad(f.sum(), xg)
+            with obs.span("eval.backward"):
+                (g,) = torch.autograd.grad(f.sum(), xg)
         return f.detach(), g, t_star, CostBreakdown(
             *(v.detach() for v in bd))
 

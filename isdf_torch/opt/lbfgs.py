@@ -13,6 +13,9 @@ cost_and_grad signature:  (x, aux) -> (f, g, new_aux), f a 0-d tensor.
 ``minimize_lockstep`` is the scenario-batched solver: x is (B, n), f is (B,),
 and every scenario's search advances by one trial per loop trip, all on the
 device with no decision taken on the host.
+
+Every read of a device value on the host goes through ``obs.host_read``;
+the cost evaluations and the lockstep's loop trips are ``obs`` spans.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from dataclasses import dataclass, replace
 from typing import Any, Callable, Optional
 
 import torch
+
+from isdf_torch.utils import obs
 
 
 @dataclass
@@ -36,6 +41,7 @@ class LBFGSResult:
     history: torch.Tensor   # (trace_len,) cost trace, NaN-padded
     state: Any = None       # the solver state to resume from (minimize)
     stats: Any = None       # lmbm: serious and null steps, restarts
+    n_trials: int = 0       # line-search trials (minimize)
 
 
 @dataclass
@@ -56,6 +62,7 @@ class LBFGSState:
     evals: int
     done: bool
     fpast: list              # (past,) rolling costs
+    trials: int = 0          # line-search trials
 
 
 def _two_loop(g, S, Y, rho, n_corr: int, head: int, m: int,
@@ -99,8 +106,8 @@ def _line_search(cost_and_grad, x, f0, g0, d, aux, max_ls, c1=1e-4, c2=0.9,
     refreshed aux is carried out.  armijo_slack is an absolute slack on the
     sufficient decrease (the baseline-skip mode's allowance for the aux
     drift).  Returns (step, f, g, aux, ok, evals)."""
-    f0v = float(f0)
-    dg0 = float(torch.dot(g0, d))
+    f0v = obs.host_read(f0)
+    dg0 = obs.host_read(torch.dot(g0, d))
     step, lo, hi = float(step0), 0.0, math.inf
     f, g, aux2 = f0, g0, aux
     ok = False
@@ -108,9 +115,9 @@ def _line_search(cost_and_grad, x, f0, g0, d, aux, max_ls, c1=1e-4, c2=0.9,
     while not ok and evals < max_ls:
         ft, gt, auxt = cost_and_grad(x + step * d, aux)
         evals += 1
-        ftv = float(ft)
+        ftv = obs.host_read(ft)
         armijo = ftv <= f0v + c1 * step * dg0 + armijo_slack
-        curv = float(torch.dot(gt, d)) >= c2 * dg0
+        curv = obs.host_read(torch.dot(gt, d)) >= c2 * dg0
         ok = armijo and curv
         if not armijo:
             hi = step
@@ -125,7 +132,7 @@ def _line_search(cost_and_grad, x, f0, g0, d, aux, max_ls, c1=1e-4, c2=0.9,
         if not ok:
             step = mid if math.isfinite(hi) else 2.0 * max(step, lo)
         f, g, aux2 = ft, gt, auxt
-    improved = float(f) < f0v
+    improved = obs.host_read(f) < f0v
     if improved:
         return step, f, g, aux2, True, evals
     return 0.0, f0, g0, aux, ok, evals
@@ -169,7 +176,7 @@ def minimize(
         n = x0.shape[0]
         f, g, aux = cost_and_grad(x0, aux0)
         fpast = [math.inf] * past
-        fpast[0] = float(f)
+        fpast[0] = obs.host_read(f)
         st = LBFGSState(
             x=x0, f=f, g=g, aux=aux,
             S=torch.zeros((m, n), dtype=dtype, device=dev),
@@ -185,23 +192,23 @@ def minimize(
         else:
             f0, g0 = st.f, st.g
             # purely relative: vanishes as f → 0
-            slack = 1e-6 * abs(float(st.f))
+            slack = 1e-6 * abs(obs.host_read(st.f))
         d = -_two_loop(g0, st.S, st.Y, st.rho, st.n_corr, st.head, m)
-        if not float(torch.dot(d, g0)) < 0:
+        if not obs.host_read(torch.dot(d, g0)) < 0:
             d = -g0
         # without curvature pairs d = −g; scale the first trial step
         # like LBFGS-Lite (ref lbfgs.hpp:565: step = 1/‖d‖ at k = 1)
         step0 = 1.0 if st.n_corr > 0 else \
-            1.0 / max(float(torch.linalg.norm(d)), 1.0)
+            1.0 / max(obs.host_read(torch.linalg.norm(d)), 1.0)
         step, f, g, aux, ok, ls_evals = _line_search(
             cost_and_grad, st.x, f0, g0, d, st.aux, max_ls, step0=step0,
             armijo_slack=slack)
         x_new = st.x + step * d
         s = x_new - st.x
         y = g - g0
-        sy = float(torch.dot(s, y))
-        good = ok and sy > 1e-10 * float(torch.linalg.norm(s)) * float(
-            torch.linalg.norm(y))
+        sy = obs.host_read(torch.dot(s, y))
+        good = ok and sy > 1e-10 * obs.host_read(torch.linalg.norm(s)) * \
+            obs.host_read(torch.linalg.norm(y))
         if good:
             st.S[st.head] = s
             st.Y[st.head] = y
@@ -209,9 +216,9 @@ def minimize(
             st.head = (st.head + 1) % m
             st.n_corr = min(st.n_corr + 1, m)
 
-        gnorm = float(torch.linalg.norm(g)) / max(
-            float(torch.linalg.norm(x_new)), 1.0)
-        fv = float(f)
+        gnorm = obs.host_read(torch.linalg.norm(g)) / max(
+            obs.host_read(torch.linalg.norm(x_new)), 1.0)
+        fv = obs.host_read(f)
         # the slot about to be overwritten was written `past` iterations ago
         f_old = st.fpast[(st.it + 1) % past]
         conv_f = st.it >= past and \
@@ -221,11 +228,12 @@ def minimize(
         trace[st.it % trace_len] = f
         st.x, st.f, st.g, st.aux = x_new, f, g, aux
         st.evals += ls_evals + (1 if consistent_baseline else 0)
+        st.trials += ls_evals
         st.it += 1
 
     return LBFGSResult(x=st.x, f=st.f, g=st.g, n_iters=st.it,
                        n_evals=st.evals, converged=st.done, aux=st.aux,
-                       history=trace, state=st)
+                       history=trace, state=st, n_trials=st.trials)
 
 
 def minimize_chunked(cost_and_grad, x0, aux0=None, m: int = 16,
@@ -414,93 +422,95 @@ def minimize_lockstep(
     b = torch.arange(B, device=dev)
     one = torch.ones((), dtype=dtype, device=dev)
     for _ in range(max_loop):
-        live = (~st.done) & (st.it < loop_end) & (st.n_accept < accept_end)
+        with obs.span("lockstep.trip"):
+            live = (~st.done) & (st.it < loop_end) & (st.n_accept < accept_end)
 
-        # slot 1: baseline refresh
-        f_re, g_re, _ = cost_and_grad(st.x, st.aux)
-        fresh = st.ls_k == 0
-        f0 = torch.where(fresh, f_re, st.f)
-        g0 = torch.where(fresh[:, None], g_re, st.g)
+            # slot 1: baseline refresh
+            f_re, g_re, _ = cost_and_grad(st.x, st.aux)
+            fresh = st.ls_k == 0
+            f0 = torch.where(fresh, f_re, st.f)
+            g0 = torch.where(fresh[:, None], g_re, st.g)
 
-        # direction: recomputed on fresh searches only
-        d_new = -_two_loop_lockstep(g0, st.S, st.Y, st.rho, st.n_corr,
-                                    st.head, m)
-        d_new = torch.where((_dot(d_new, g0) < 0)[:, None], d_new, -g0)
-        dnorm = torch.linalg.norm(d_new, dim=-1)
-        step_new = torch.where(st.n_corr > 0, one,
-                               1.0 / torch.clamp(dnorm, min=1.0))
-        d = torch.where(fresh[:, None], d_new, st.d)
-        step = torch.where(fresh, step_new, st.step)
-        dg0 = _dot(d, g0)
+            # direction: recomputed on fresh searches only
+            d_new = -_two_loop_lockstep(g0, st.S, st.Y, st.rho, st.n_corr,
+                                        st.head, m)
+            d_new = torch.where((_dot(d_new, g0) < 0)[:, None], d_new, -g0)
+            dnorm = torch.linalg.norm(d_new, dim=-1)
+            step_new = torch.where(st.n_corr > 0, one,
+                                   1.0 / torch.clamp(dnorm, min=1.0))
+            d = torch.where(fresh[:, None], d_new, st.d)
+            step = torch.where(fresh, step_new, st.step)
+            dg0 = _dot(d, g0)
 
-        # slot 2: one weak-Wolfe trial
-        xt = st.x + step[:, None] * d
-        ft, gt, auxt = cost_and_grad(xt, st.aux)
-        armijo = ft <= f0 + c1 * step * dg0
-        curv = _dot(gt, d) >= c2 * dg0
-        ok = armijo & curv
-        exhausted = (st.ls_k + 1 >= max_ls) & (~ok)
-        # on exhaustion keep the last trial anyway when it decreased f;
-        # else the search failed → done
-        salvage = exhausted & (ft < f0)
-        accept = ok | salvage
-        fail = exhausted & (~salvage)
+            # slot 2: one weak-Wolfe trial
+            xt = st.x + step[:, None] * d
+            ft, gt, auxt = cost_and_grad(xt, st.aux)
+            armijo = ft <= f0 + c1 * step * dg0
+            curv = _dot(gt, d) >= c2 * dg0
+            ok = armijo & curv
+            exhausted = (st.ls_k + 1 >= max_ls) & (~ok)
+            # on exhaustion keep the last trial anyway when it decreased f;
+            # else the search failed → done
+            salvage = exhausted & (ft < f0)
+            accept = ok | salvage
+            fail = exhausted & (~salvage)
 
-        s_vec = xt - st.x
-        y_vec = gt - g0
-        sy = _dot(s_vec, y_vec)
-        good = live & accept & (sy > 1e-10 * torch.linalg.norm(s_vec, dim=-1)
-                                * torch.linalg.norm(y_vec, dim=-1))
-        S = st.S.index_put((b, st.head), torch.where(
-            good[:, None], s_vec, st.S[b, st.head]))
-        Y = st.Y.index_put((b, st.head), torch.where(
-            good[:, None], y_vec, st.Y[b, st.head]))
-        rho = st.rho.index_put((b, st.head), torch.where(
-            good, 1.0 / sy, st.rho[b, st.head]))
-        head = torch.where(good, (st.head + 1) % m, st.head)
-        n_corr = torch.where(good, torch.clamp(st.n_corr + 1, max=m),
-                             st.n_corr)
+            s_vec = xt - st.x
+            y_vec = gt - g0
+            sy = _dot(s_vec, y_vec)
+            good = live & accept & (
+                sy > 1e-10 * torch.linalg.norm(s_vec, dim=-1)
+                * torch.linalg.norm(y_vec, dim=-1))
+            S = st.S.index_put((b, st.head), torch.where(
+                good[:, None], s_vec, st.S[b, st.head]))
+            Y = st.Y.index_put((b, st.head), torch.where(
+                good[:, None], y_vec, st.Y[b, st.head]))
+            rho = st.rho.index_put((b, st.head), torch.where(
+                good, 1.0 / sy, st.rho[b, st.head]))
+            head = torch.where(good, (st.head + 1) % m, st.head)
+            n_corr = torch.where(good, torch.clamp(st.n_corr + 1, max=m),
+                                 st.n_corr)
 
-        x_new = torch.where(accept[:, None], xt, st.x)
-        f_new = torch.where(accept, ft, f0)
-        g_new = torch.where(accept[:, None], gt, g0)
-        # on a reject: Armijo failure means the step is too long (halve);
-        # Armijo passed but the curvature failed means it is too short
-        # (halving can never fix that), so grow
-        grow = armijo & (~curv)
-        step = torch.where(accept, step,
-                           torch.where(grow, 2.0 * step, 0.5 * step))
+            x_new = torch.where(accept[:, None], xt, st.x)
+            f_new = torch.where(accept, ft, f0)
+            g_new = torch.where(accept[:, None], gt, g0)
+            # on a reject: Armijo failure means the step is too long (halve);
+            # Armijo passed but the curvature failed means it is too short
+            # (halving can never fix that), so grow
+            grow = armijo & (~curv)
+            step = torch.where(accept, step,
+                               torch.where(grow, 2.0 * step, 0.5 * step))
 
-        gnorm = torch.linalg.norm(g_new, dim=-1) / torch.clamp(
-            torch.linalg.norm(x_new, dim=-1), min=1.0)
-        conv_g = accept & (gnorm < g_epsilon)
-        # the slot an accept overwrites was written `past` accepts ago
-        slot = ((st.n_accept + 1) % past)[:, None]
-        f_old = st.fpast.gather(1, slot)[:, 0]
-        conv_f = accept & (st.n_accept >= past) & (
-            (f_old - f_new) / torch.clamp(f_new.abs(), min=1.0)
-            < rel_cost_tol)
-        took = live & accept
-        tslot = (st.it % trace_len)[:, None]
-        st = LockState(
-            x=torch.where(live[:, None], x_new, st.x),
-            f=torch.where(live, f_new, st.f),
-            g=torch.where(live[:, None], g_new, st.g),
-            aux=_select(took, auxt, st.aux),
-            d=torch.where(live[:, None], d, st.d),
-            step=torch.where(live, step, st.step),
-            ls_k=torch.where(live, torch.where(accept, 0, st.ls_k + 1),
-                             st.ls_k),
-            S=S, Y=Y, rho=rho, n_corr=n_corr, head=head,
-            it=st.it + live,
-            n_accept=st.n_accept + took,
-            evals=st.evals + 2 * live,
-            done=st.done | (live & (conv_g | conv_f | fail)),
-            fpast=st.fpast.scatter(1, slot, torch.where(
-                took, f_new, f_old)[:, None]),
-            trace=st.trace.scatter(1, tslot, torch.where(
-                live, f_new, st.trace.gather(1, tslot)[:, 0])[:, None]),
-        )
+            gnorm = torch.linalg.norm(g_new, dim=-1) / torch.clamp(
+                torch.linalg.norm(x_new, dim=-1), min=1.0)
+            conv_g = accept & (gnorm < g_epsilon)
+            # the slot an accept overwrites was written `past` accepts ago
+            slot = ((st.n_accept + 1) % past)[:, None]
+            f_old = st.fpast.gather(1, slot)[:, 0]
+            conv_f = accept & (st.n_accept >= past) & (
+                (f_old - f_new) / torch.clamp(f_new.abs(), min=1.0)
+                < rel_cost_tol)
+            took = live & accept
+            tslot = (st.it % trace_len)[:, None]
+            st = LockState(
+                x=torch.where(live[:, None], x_new, st.x),
+                f=torch.where(live, f_new, st.f),
+                g=torch.where(live[:, None], g_new, st.g),
+                aux=_select(took, auxt, st.aux),
+                d=torch.where(live[:, None], d, st.d),
+                step=torch.where(live, step, st.step),
+                ls_k=torch.where(live, torch.where(accept, 0, st.ls_k + 1),
+                                 st.ls_k),
+                S=S, Y=Y, rho=rho, n_corr=n_corr, head=head,
+                it=st.it + live,
+                n_accept=st.n_accept + took,
+                evals=st.evals + 2 * live,
+                done=st.done | (live & (conv_g | conv_f | fail)),
+                fpast=st.fpast.scatter(1, slot, torch.where(
+                    took, f_new, f_old)[:, None]),
+                trace=st.trace.scatter(1, tslot, torch.where(
+                    live, f_new, st.trace.gather(1, tslot)[:, 0])[:, None]),
+            )
 
     return LockstepResult(
         x=st.x, f=st.f, g=st.g, n_iters=st.n_accept, n_evals=st.evals,

@@ -5,7 +5,8 @@ Fits a MINCO trajectory through the A* waypoints minimizing
   energy + ρ_mid Σ T + w_pr Σ_i ‖pos_i − ref_i‖³  [+ attitude tracking]
 where pos_i samples the start of piece i+1 (local time T_{i+1}/integralRes)
 and ref_i are the subsampled A* waypoints.  The solution x = [τ | ξ]
-warm-starts the back end.
+warm-starts the back end.  Each cost evaluation is an ``obs`` span,
+``mid_end.eval``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from isdf_torch.core.poly import beta
 from isdf_torch.opt import lbfgs
 from isdf_torch.opt.attitude import attitude_penalty, pad_attitude_refs
 from isdf_torch.opt.backend import build_traj, pack
+from isdf_torch.utils import obs
 
 
 def make_cost_fn(head, tail, N: int, ref_points, rho_mid: float,
@@ -43,7 +45,7 @@ def make_cost_fn(head, tail, N: int, ref_points, rho_mid: float,
         return total
 
     def cost_and_grad(x, aux):
-        with torch.enable_grad():
+        with obs.span("mid_end.eval"), torch.enable_grad():
             xg = x.detach().requires_grad_(True)
             f = raw_cost(xg)
             (g,) = torch.autograd.grad(f, xg)

@@ -8,7 +8,9 @@ sweep/sweep_sdf, opt/backend), the swept SDF of all B × P queries is one
 launch of K2 (sweep/fused_zoom.sweep_warm_fused_batched), and
 ``opt/lbfgs.minimize_lockstep`` advances every scenario's L-BFGS by one trial
 per loop trip.  Scenarios that converge early are frozen (masked no-ops)
-while the others run.  The host reads device values once per chunk.
+while the others run.  The host reads device values once per chunk, through
+``obs.host_read``; a chunked solve is an ``obs`` span, ``batch.solve``, and
+each loop trip one ``lockstep.trip``.
 
 Over several ranks (parallel/mesh.py): ``shard_batch`` gives each rank its
 block of scenarios (dp) and of each scenario's points (sp) and records the
@@ -35,6 +37,7 @@ from isdf_torch.parallel.mesh import (  # noqa: F401
     Mesh, gather_dp, global_all, global_min, global_sum, make_mesh,
     shard_batch)
 from isdf_torch.sweep.sweep_sdf import sweep_sdf
+from isdf_torch.utils import obs
 
 
 @dataclass(frozen=True)
@@ -177,22 +180,29 @@ def _solve_chunked(shape, conf, batch: ScenarioBatch, max_iters: int,
                    chunk: int, callback: Optional[Callable] = None,
                    t_warm0=None):
     """batched_solve_chunked on this rank's block → its (coeffs, T, costs,
-    iters)."""
-    if t_warm0 is None:
-        t_warm0 = torch.zeros_like(batch.points[..., 0])
-    cost_and_grad = _cost_fn(shape, conf, batch)
-    kw = dict(trace_len=2 * chunk + 8)
-    res = _lockstep(conf, cost_and_grad, _x0(batch), t_warm0, chunk, **kw)
-    iters_done = chunk
-    while iters_done < max_iters:
-        if callback is not None:
-            callback(res)
-        if global_all(res.converged, batch.mesh):
-            break
-        res = _lockstep(conf, cost_and_grad, res.x, res.aux, chunk,
-                        resume_state=res.state, **kw)
-        iters_done += chunk
-    coeffs, T = _finish(batch, res.x)
+    iters).  The ``batch.solve`` span counts its chunks, loop trips and
+    host reads."""
+    with obs.span("batch.solve") as sp:
+        if t_warm0 is None:
+            t_warm0 = torch.zeros_like(batch.points[..., 0])
+        cost_and_grad = _cost_fn(shape, conf, batch)
+        kw = dict(trace_len=2 * chunk + 8)
+        res = _lockstep(conf, cost_and_grad, _x0(batch), t_warm0, chunk,
+                        **kw)
+        chunks, trips, reads = 1, res.n_loops, 0
+        iters_done = chunk
+        while iters_done < max_iters:
+            if callback is not None:
+                callback(res)
+            reads += 1
+            if global_all(res.converged, batch.mesh):
+                break
+            res = _lockstep(conf, cost_and_grad, res.x, res.aux, chunk,
+                            resume_state=res.state, **kw)
+            chunks, trips = chunks + 1, trips + res.n_loops
+            iters_done += chunk
+        coeffs, T = _finish(batch, res.x)
+        sp.set(chunks=chunks, trips=trips, host_reads=reads)
     return coeffs, T, res.f, res.n_iters
 
 
@@ -271,8 +281,8 @@ def batched_solve_audited(shape, conf, batch: ScenarioBatch,
     for rnd in range(rounds + 1):   # the last pass audits the last re-solve
         sdf, t_star = _batched_audit(shape, conf, solve_batch, coeffs, T,
                                      audit_coarse_n)
-        viol = int(global_sum(((sdf <= margin) & solve_batch.mask).sum(),
-                              mesh))
+        viol = obs.host_read(global_sum(
+            ((sdf <= margin) & solve_batch.mask).sum(), mesh), int)
         inj = None
         if reserve_points is not None:
             sdf_r, t_star_r = _batched_audit(
@@ -280,7 +290,8 @@ def batched_solve_audited(shape, conf, batch: ScenarioBatch,
                 T, audit_coarse_n)
             sdf_r = torch.where(reserve_mask, sdf_r, inf)
             # the pool is whole on every "sp" rank: count it over "dp"
-            viol += int(global_sum((sdf_r <= margin).sum(), mesh, "dp"))
+            viol += obs.host_read(global_sum((sdf_r <= margin).sum(), mesh,
+                                             "dp"), int)
             min_sdf_reserve = sdf_r.min(dim=1).values
             # promote the K nearest-grazing reserve points into the extra
             # slots (a fixed K keeps the re-solve's shapes stable)

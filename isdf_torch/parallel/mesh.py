@@ -33,6 +33,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from isdf_torch.device import resolve_device
+from isdf_torch.utils import obs
 
 AXES = ("dp", "sp")
 
@@ -191,7 +192,7 @@ def global_all(x: torch.Tensor, mesh: Optional[Mesh]) -> bool:
     """Whether x holds on every element of every rank (``jnp.all`` of a
     sharded array)."""
     ok = x.all().to(torch.int32)
-    return bool(global_min(ok, mesh))
+    return obs.host_read(global_min(ok, mesh), bool)
 
 
 def gather_dp(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:

@@ -9,6 +9,12 @@ Pipeline per plan request:
   5. back end: L-BFGS with the swept-volume SDF safety penalty (K1),
      optionally monitored
   6. swept-SDF audit (K1); violations are injected and re-solved
+
+A plan is an ``obs`` span, ``plan``, with one child a phase:
+``plan.front_end``, ``plan.gather``, ``plan.mid_end``, ``plan.back_end``
+(one a solve: 0 the first, then the safety re-plans) and ``plan.audit``
+(one a round).  ``PlanResult.metrics`` times the same phases whether or not
+spans are recorded.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from isdf_torch.search.pose_kernels import (build_pose_kernels,
                                             pose_feasibility)
 from isdf_torch.shapes import Shape, make_shape
 from isdf_torch.sweep.sweep_sdf import sweep_sdf
-from isdf_torch.utils.obs import Metrics
+from isdf_torch.utils import obs
 from isdf_torch.world import aabb
 from isdf_torch.world.gridmap import GridMap
 
@@ -88,6 +94,12 @@ def _rp_to_rot(rolls: np.ndarray, pitches: np.ndarray) -> np.ndarray:
     return R
 
 
+def _solve_counts(sp, solve: int, res):
+    """A back-end solve's counts on its ``plan.back_end`` span."""
+    sp.set(solve=solve, iterations=res.n_iters, evaluations=res.n_evals,
+           trials=res.n_trials)
+
+
 class PlannerManager:
     """``device=None`` means the CUDA card (raises without one); ``dtype``
     is the working precision of the optimizer (float32 on the card)."""
@@ -106,7 +118,6 @@ class PlannerManager:
         self._host_map: Optional[GridMap] = None
         self.feasibility: Optional[np.ndarray] = None
         self.pose_kernels = None
-        self.metrics = Metrics()
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
@@ -115,12 +126,10 @@ class PlannerManager:
     # -- map arrival (ref mapRcvCallBack plan_manager.cpp:397-411) -----------
     def set_map_points(self, points: np.ndarray,
                        use_pose_kernels: bool = True):
-        t0 = time.perf_counter()
         gm = GridMap.from_points(
             points, self.conf.mapBound, self.conf.occupancy_resolution,
             self.conf.sta_threshold, device=self.device)
         self.set_map(gm, use_pose_kernels=use_pose_kernels)
-        self.metrics.log("map_build_s", time.perf_counter() - t0)
 
     def set_map(self, gm: GridMap, use_pose_kernels: bool = True):
         """A new map.  With ``use_pose_kernels`` the pose-feasibility
@@ -130,7 +139,6 @@ class PlannerManager:
         self.gridmap = gm
         self._host_map = gm.cpu()       # for the host-side obstacle gathers
         if use_pose_kernels:
-            t0 = time.perf_counter()
             if self.pose_kernels is None:
                 # shape-only precompute, reused across map updates (a
                 # closed loop rebuilds only the feasibility convolution)
@@ -139,7 +147,6 @@ class PlannerManager:
             feas = pose_feasibility(gm.occ.to(self.device),
                                     self.pose_kernels.kernels)
             self.feasibility = feas.cpu().numpy()
-            self.metrics.log("kernel_build_s", time.perf_counter() - t0)
 
     def snap_feasible(self, p, max_radius_vox: int = 6) -> np.ndarray:
         """Snap a point to the nearest any-pose-feasible free voxel center
@@ -193,6 +200,12 @@ class PlannerManager:
         ``begin_solve`` each)."""
         if self.gridmap is None:
             raise RuntimeError("call set_map first")
+        with obs.span("plan"):
+            return self._plan(start, goal, max_iters, start_vel, start_acc,
+                              monitor)
+
+    def _plan(self, start, goal, max_iters, start_vel, start_acc,
+              monitor) -> PlanResult:
         conf = self.conf
         m: Dict[str, Any] = {}
 
@@ -202,9 +215,10 @@ class PlannerManager:
         # 1. front end
         t0 = time.perf_counter()
         pk = self.pose_kernels
-        fr = astar_se3(self.gridmap, start, goal, self.feasibility,
-                       None if pk is None else pk.rolls.cpu().numpy(),
-                       None if pk is None else pk.pitches.cpu().numpy())
+        with obs.span("plan.front_end"):
+            fr = astar_se3(self.gridmap, start, goal, self.feasibility,
+                           None if pk is None else pk.rolls.cpu().numpy(),
+                           None if pk is None else pk.pitches.cpu().numpy())
         m["front_end_s"] = time.perf_counter() - t0
         m["expanded"] = fr.expanded
         if not fr.success:
@@ -235,9 +249,11 @@ class PlannerManager:
         # 3. obstacle gather
         t0 = time.perf_counter()
         bd = conf.kernel_bd
-        pts, mask = aabb.gather_aabb_points(
-            self._host_map, Q, (bd / 3, bd / 3, bd / 3),
-            offset=conf.offsetAABBbox, max_points=conf.max_obstacle_points)
+        with obs.span("plan.gather"):
+            pts, mask = aabb.gather_aabb_points(
+                self._host_map, Q, (bd / 3, bd / 3, bd / 3),
+                offset=conf.offsetAABBbox,
+                max_points=conf.max_obstacle_points)
         m["aabb_s"] = time.perf_counter() - t0
         m["parallel_points_num"] = int(mask.sum())
 
@@ -255,8 +271,11 @@ class PlannerManager:
 
         # 4. mid end
         t0 = time.perf_counter()
-        ori_traj, opt_x, mid_res = midend.get_ori_traj(
-            conf, head, tail, self._t(Q), T0, rot_refs=rot_refs)
+        with obs.span("plan.mid_end") as sp:
+            ori_traj, opt_x, mid_res = midend.get_ori_traj(
+                conf, head, tail, self._t(Q), T0, rot_refs=rot_refs)
+            sp.set(iterations=mid_res.n_iters, evaluations=mid_res.n_evals,
+                   trials=mid_res.n_trials)
         m["mid_end_s"] = time.perf_counter() - t0
         m["mid_end_iters"] = mid_res.n_iters
         m["mid_end_evals"] = mid_res.n_evals
@@ -266,9 +285,11 @@ class PlannerManager:
         tau, q_ws = backend.unpack(opt_x, N)
         solve = dict(max_iters=max_iters, rot_refs=rot_refs,
                      monitor=monitor, device=self.device, dtype=self.dtype)
-        traj, res = backend.optimize(
-            self.shape, conf, head, tail, q_ws, timemap.tau_to_T(tau),
-            pts, mask, **solve)
+        with obs.span("plan.back_end") as sp:
+            traj, res = backend.optimize(
+                self.shape, conf, head, tail, q_ws, timemap.tau_to_T(tau),
+                pts, mask, **solve)
+            _solve_counts(sp, 0, res)
         m["back_end_s"] = time.perf_counter() - t0
         m["back_end_iters"] = res.n_iters
         m["back_end_evals"] = res.n_evals
@@ -278,7 +299,8 @@ class PlannerManager:
         # first) and re-solve warm-started from the current trajectory
         for rnd in range(conf.safety_replan_rounds):
             t0 = time.perf_counter()
-            viol, viol_t = self._audit_violations(traj)
+            with obs.span("plan.audit"):
+                viol, viol_t = self._audit_violations(traj)
             m["audit_s"] = m.get("audit_s", 0.0) + time.perf_counter() - t0
             if viol is None or len(viol) == 0:
                 break
@@ -297,9 +319,11 @@ class PlannerManager:
             t_warm_np[evict] = viol_t[:k]
             q_ws = traj.junction_positions()[1:-1]
             t0 = time.perf_counter()
-            traj, res = backend.optimize(
-                self.shape, conf, head, tail, q_ws, traj.durations, pts,
-                mask, t_warm0=t_warm_np, **solve)
+            with obs.span("plan.back_end") as sp:
+                traj, res = backend.optimize(
+                    self.shape, conf, head, tail, q_ws, traj.durations, pts,
+                    mask, t_warm0=t_warm_np, **solve)
+                _solve_counts(sp, rnd + 1, res)
             m["back_end_s"] += time.perf_counter() - t0
             m["back_end_iters"] += res.n_iters
             m["back_end_evals"] += res.n_evals
@@ -308,8 +332,6 @@ class PlannerManager:
 
         m["final_cost"] = float(res.f)
         m["total_duration"] = float(traj.total_duration)
-        m["cost_trace"] = res.history.cpu().numpy()
-        self.metrics.log_dict(m)
         return PlanResult(True, traj=traj, path=fr.path, rolls=fr.rolls,
                           pitches=fr.pitches, metrics=m)
 
