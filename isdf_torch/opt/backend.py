@@ -15,14 +15,33 @@ where SV is the swept-volume SDF at the per-point argmin time t*,
 warm-started across outer iterations and frozen in the gradient (envelope
 theorem).  All gradients come from autograd through this scalar.
 
-Each evaluation is an ``obs`` span, ``back_end.eval``, with its parts as
-children: ``eval.traj`` (MINCO, energy, time), ``eval.dyn`` (the integral
-penalties), ``eval.sweep`` (the sweep kernel and the re-evaluation at t*)
-and ``eval.backward`` (the gradient).
+On the card an evaluation replays two CUDA graphs around the sweep
+kernel's eager launch (:class:`SplitCost`, :class:`_Graphs`): G1 computes
+the kernel's inputs from x, G2 the differentiable rest of the cost and its
+gradient at the kernel's constant (t*, d*, g*).  The kernel stays an eager
+call of its entry point, once an evaluation.  The graphs are kept per key (the
+shapes, the settings, the shape and pose map) in a small LRU shared by every
+solve; a key's first ``WARMUP`` evaluations run eagerly, then it is captured
+once and replayed.  The graphs engage only on CUDA tensors, on the kernel
+sweep (``sweep_sdf.kernel_ok``) and without an "sp" group; a capture that
+raises leaves its key eager for good (``GRAPH_FAILURES``).  A batch's
+key runs under cuSOLVER's and cuBLAS's linear algebra, one trajectory's
+under PyTorch's default.
+
+Each evaluation is an ``obs`` span, ``back_end.eval``, whose ``graph``
+attribute says how it ran (``replay``, ``capture`` or ``eager``, counted in
+``GRAPH_EVALS``).  An eager evaluation has its parts as children:
+``eval.traj`` (MINCO, energy, time), ``eval.dyn`` (the integral penalties),
+``eval.sweep`` (the sweep kernel and the re-evaluation at t*) and
+``eval.backward`` (the gradient); a graph evaluation has one,
+``eval.sweep`` around the kernel's launch.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
+from collections import OrderedDict
 from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional
 
@@ -36,8 +55,18 @@ from isdf_torch.device import resolve_device
 from isdf_torch.opt import lbfgs, lmbm
 from isdf_torch.opt.attitude import attitude_penalty, pad_attitude_refs
 from isdf_torch.parallel.mesh import copy_to_sp, reduce_from_sp
-from isdf_torch.sweep.sweep_sdf import sweep_sdf_warm
+from isdf_torch.sweep.sweep_sdf import (kernel_args, kernel_ok, launch,
+                                        sweep_sdf_warm, sweep_value)
 from isdf_torch.utils import obs
+
+WARM_WINDOW = 0.3        # the warm sweep's window around the last t*
+# the sweep as imported: a fault or a test that replaces it on this module
+# replaces it in the one-piece evaluation, which the graphs would bypass
+_SWEEP = sweep_sdf_warm
+GRAPH_EVALS = {"replay": 0, "capture": 0, "eager": 0}   # evaluations so far
+GRAPH_FAILURES = 0       # keys whose capture raised (then run eagerly)
+GRAPH_KEYS = 8           # keys whose graphs are kept, least recent first out
+WARMUP = 2               # eager evaluations of a new key before its capture
 
 
 @dataclass(frozen=True)
@@ -131,11 +160,16 @@ def swept_penalty(shape, traj: PolyTraj, params, w: BackendWeights, points,
                         copy_to_sp(traj.coeffs, sp_group))
     sdf, t_star, _ = sweep_sdf_warm(
         shape, traj, params, points, t_warm,
-        coarse_n=coarse_n, refine_rounds=refine_rounds, device=points.device,
+        coarse_n=coarse_n, refine_rounds=refine_rounds,
+        warm_window=WARM_WINDOW, device=points.device,
     )
+    return reduce_from_sp(safety_cost(w, sdf, mask), sp_group), t_star
+
+
+def safety_cost(w: BackendWeights, sdf, mask):
+    """The penalty's sum over the live obstacle points of the swept SDF."""
     pena = w.weight_p * smoothed_l1(w.safety_hor - sdf, 0.01)
-    cost = minco.sum_last(torch.where(mask, pena, torch.zeros_like(pena)), 1)
-    return reduce_from_sp(cost, sp_group), t_star
+    return minco.sum_last(torch.where(mask, pena, torch.zeros_like(pena)), 1)
 
 
 class CostBreakdown(NamedTuple):
@@ -144,6 +178,212 @@ class CostBreakdown(NamedTuple):
     time: torch.Tensor
     dyn: torch.Tensor
     safety: torch.Tensor
+
+
+class CostData(NamedTuple):
+    """The tensors of one back-end problem besides x and the warm seeds:
+    the boundary states, the obstacle points and their mask, and the
+    attitude references (None without the attitude term)."""
+    head: torch.Tensor
+    tail: torch.Tensor
+    points: torch.Tensor
+    mask: torch.Tensor
+    att: Optional[torch.Tensor]
+
+
+class SplitCost:
+    """The cost-and-gradient evaluation cut at the sweep kernel, so that a
+    CUDA graph can hold each side of its eager launch: (a)
+    :meth:`kernel_args`, the kernel's inputs from x with no grad; (b)
+    :meth:`launch`, the kernel; (c) :meth:`remainder`, the trajectory built
+    again from x with grad, the cost at the kernel's constant (t*, d*, g*)
+    and its gradient.  Run eagerly one after the other, the three give the
+    one-piece evaluation's f, g, t* and breakdown, bitwise on the CPU.  Only
+    the sweep kernel's path cuts (``kernel_ok``)."""
+
+    def __init__(self, shape, params, w: BackendWeights, N: int,
+                 integral_res: int, coarse_n: int, refine_rounds: int,
+                 weight_ar: float = 0.0, bridge: bool = True):
+        self.shape, self.params, self.w, self.N = shape, params, w, N
+        self.integral_res, self.coarse_n = integral_res, coarse_n
+        self.refine_rounds = refine_rounds
+        self.weight_ar, self.bridge = weight_ar, bridge
+
+    def key(self, x, d: CostData) -> tuple:
+        """What the evaluation's work depends on besides the tensors'
+        values: graphs captured under one key replay for every other."""
+        return (id(self.shape), type(self.params), self.params, self.w,
+                self.N, self.integral_res, self.coarse_n, self.refine_rounds,
+                WARM_WINDOW, tuple(d.points.shape), x.dtype, x.device,
+                None if d.att is None else (tuple(d.att.shape),
+                                            self.weight_ar, self.bridge))
+
+    def traj_terms(self, x, d: CostData):
+        """(trajectory, MINCO energy, time cost) of x."""
+        traj, T, _ = build_traj(x, self.N, d.head, d.tail)
+        return (traj, minco.energy(traj.coeffs, T),
+                self.w.rho * minco.sum_last(T, 1))
+
+    def dyn_term(self, traj: PolyTraj, d: CostData):
+        """The integral penalties, with the attitude term where it is on."""
+        dyn = integral_penalty(traj, self.params, self.w, self.integral_res)
+        if d.att is not None:
+            dyn = dyn + attitude_penalty(
+                traj, self.params, d.att, self.weight_ar, self.w.smooth_fac,
+                self.integral_res, bridge=self.bridge)
+        return dyn
+
+    def kernel_args(self, x, t_warm, d: CostData):
+        with torch.no_grad():
+            traj, _, _ = build_traj(x.detach(), self.N, d.head, d.tail)
+            return kernel_args(self.shape, traj, self.params, d.points,
+                               t_warm, self.coarse_n)
+
+    def launch(self, args, dtype):
+        return launch(self.shape, self.params, args, self.coarse_n,
+                      self.refine_rounds, WARM_WINDOW, dtype)
+
+    def remainder(self, x, d: CostData, kout):
+        """→ (f, g, CostBreakdown), detached."""
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            traj, e, t_cost = self.traj_terms(xg, d)
+            dyn = self.dyn_term(traj, d)
+            safety = safety_cost(self.w, sweep_value(
+                self.shape, traj, self.params, d.points, kout), d.mask)
+            total = e + t_cost + dyn + safety
+            (g,) = torch.autograd.grad(total.sum(), xg)
+        bd = CostBreakdown(*(v.detach() for v in (total, e, t_cost, dyn,
+                                                    safety)))
+        return bd.total, g, bd
+
+
+_GRAPHS: "OrderedDict[tuple, _Graphs]" = OrderedDict()
+
+
+def _capture(graph, fn, pool=None):
+    """fn() captured into ``graph``; the caller's stream comes back also
+    where the capture raises."""
+    stream = torch.cuda.current_stream()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            return fn()
+    finally:
+        torch.cuda.set_stream(stream)
+
+
+@contextlib.contextmanager
+def _linalg(lib):
+    """PyTorch's linear-algebra library ``lib`` inside the block (None: the
+    one set)."""
+    if lib is None:
+        yield
+        return
+    was = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library(lib)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(was)
+
+
+def _release_generators():
+    """A capture that CUDA refused ends with the random generators still in
+    capture mode (the next random draw on the card raises); one empty
+    capture releases them."""
+    with contextlib.suppress(Exception):
+        _capture(torch.cuda.CUDAGraph(), lambda: None)
+
+
+class _Graphs:
+    """G1 and G2 of one key (:meth:`SplitCost.key`).  Each evaluation copies
+    x, the warm seeds and the problem's tensors into G1's static inputs,
+    replays G1, launches the kernel eagerly on G1's outputs, copies its
+    outputs into G2's static inputs, replays G2 and clones G2's one flat
+    output, so that no evaluation's answer aliases the next one's.  Holds
+    the first SplitCost of its key, and with it the shape."""
+
+    def __init__(self, split: SplitCost, batched: bool):
+        self.split = split
+        # PyTorch's default takes a batch of small MINCO systems to MAGMA's
+        # LU, which no graph can hold, and one system to cuSOLVER's: every
+        # evaluation of a batch's key, eager or not, runs under cuSOLVER's
+        # and cuBLAS's, so that its replays repeat its warm-ups bit for bit
+        self.linalg = "cusolver" if batched else None
+        self.seen = 0
+        self.failed = False
+        self.error = None        # what a failed capture raised
+        self.g1 = self.g2 = None
+
+    def run(self, x, t_warm, d: CostData):
+        """(mode, (f, g, t*, breakdown)) with mode "replay" or "capture",
+        or None where this evaluation runs eagerly: the key's first
+        ``WARMUP`` evaluations, and every one after a failed capture."""
+        global GRAPH_FAILURES
+        if self.failed or self.seen < WARMUP:
+            self.seen += 1
+            return None
+        if self.g2 is not None:
+            return "replay", self._replay(x, t_warm, d)
+        try:
+            return "capture", self._replay(x, t_warm, d)
+        except Exception as exc:
+            self.failed, self.error = True, exc
+            self.g1 = self.g2 = None
+            GRAPH_FAILURES += 1
+            _release_generators()
+            return None
+
+    def _replay(self, x, t_warm, d: CostData):
+        split = self.split
+        if self.g1 is None:
+            self.static = [None if a is None else torch.empty_like(a)
+                           for a in (x, t_warm) + tuple(d)]
+        for s, a in zip(self.static, (x, t_warm) + tuple(d)):
+            if s is not None:
+                s.copy_(a)
+        sx, st, *sd = self.static
+        sd = CostData(*sd)
+        if self.g1 is None:
+            g1 = torch.cuda.CUDAGraph()
+            self.args = _capture(g1, lambda: split.kernel_args(sx, st, sd))
+            self.g1 = g1
+        self.g1.replay()
+        with obs.span("eval.sweep"):
+            kout = split.launch(self.args, x.dtype)
+        if self.g2 is None:
+            self.kout = tuple(torch.empty_like(k) for k in kout)
+        for s, k in zip(self.kout, kout):
+            s.copy_(k)
+        if self.g2 is None:
+            g2 = torch.cuda.CUDAGraph()
+            self.f_shape, self.g_shape, self.flat = _capture(
+                g2, lambda: _flat(*split.remainder(sx, sd, self.kout)),
+                pool=self.g1.pool())
+            self.g2 = g2
+        self.g2.replay()
+        out = self.flat.clone()
+        m = out.numel() - math.prod(self.g_shape)
+        bd = CostBreakdown(*out[:m].view((5,) + self.f_shape).unbind(0))
+        return bd.total, out[m:].view(self.g_shape), kout[0], bd
+
+
+def _flat(f, g, bd: CostBreakdown):
+    """(f's shape, g's shape, the breakdown and g in one flat tensor)."""
+    return tuple(f.shape), tuple(g.shape), torch.cat(
+        [torch.stack(tuple(bd)).reshape(-1), g.reshape(-1)])
+
+
+def _graphs_for(split: SplitCost, x, d: CostData) -> _Graphs:
+    key = split.key(x, d)
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        entry = _GRAPHS[key] = _Graphs(split, x.dim() == 2)
+        if len(_GRAPHS) > GRAPH_KEYS:
+            _GRAPHS.popitem(last=False)
+    else:
+        _GRAPHS.move_to_end(key)
+    return entry
 
 
 def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
@@ -164,21 +404,21 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
     independent, so one backward pass of the summed cost gives them all.  The
     attitude term takes one trajectory only.  ``sp_group``: the "sp" group
     of a mesh whose ranks each hold a block of the points (swept_penalty);
-    None, no collective."""
+    None, no collective.  On CUDA tensors the evaluation replays graphs
+    (module docstring)."""
     if att is not None and weight_ar > 0.0 and head.dim() != 2:
         raise ValueError("the attitude term takes one scenario, not a batch")
+    split = SplitCost(shape, params, w, N, integral_res, coarse_n,
+                      refine_rounds, weight_ar, bridge)
+    data = CostData(head, tail, points, mask,
+                    att if att is not None and weight_ar > 0.0 else None)
+    graphable = sp_group is None and kernel_ok(shape, coarse_n)
 
     def raw_cost(x, t_warm):
         with obs.span("eval.traj"):
-            traj, T, q = build_traj(x, N, head, tail)
-            e = minco.energy(traj.coeffs, T)
-            t_cost = w.rho * minco.sum_last(T, 1)
+            traj, e, t_cost = split.traj_terms(x, data)
         with obs.span("eval.dyn"):
-            dyn = integral_penalty(traj, params, w, integral_res)
-            if att is not None and weight_ar > 0.0:
-                dyn = dyn + attitude_penalty(
-                    traj, params, att, weight_ar, w.smooth_fac, integral_res,
-                    bridge=bridge)
+            dyn = split.dyn_term(traj, data)
         with obs.span("eval.sweep"):
             safety, t_star = swept_penalty(
                 shape, traj, params, w, points, mask, t_warm, coarse_n,
@@ -186,14 +426,24 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
         total = e + t_cost + dyn + safety
         return total, (t_star, CostBreakdown(total, e, t_cost, dyn, safety))
 
-    def value_and_grad(x, t_warm):
-        with obs.span("back_end.eval"), torch.enable_grad():
-            xg = x.detach().requires_grad_(True)
-            f, (t_star, bd) = raw_cost(xg, t_warm)
-            with obs.span("eval.backward"):
-                (g,) = torch.autograd.grad(f.sum(), xg)
+    def eager(x, t_warm):
+        xg = x.detach().requires_grad_(True)
+        f, (t_star, bd) = raw_cost(xg, t_warm)
+        with obs.span("eval.backward"):
+            (g,) = torch.autograd.grad(f.sum(), xg)
         return f.detach(), g, t_star, CostBreakdown(
             *(v.detach() for v in bd))
+
+    def value_and_grad(x, t_warm):
+        graphs = _graphs_for(split, x, data) if (
+            graphable and x.is_cuda and sweep_sdf_warm is _SWEEP) else None
+        with obs.span("back_end.eval") as s, torch.enable_grad(), \
+                _linalg(None if graphs is None else graphs.linalg):
+            got = None if graphs is None else graphs.run(x, t_warm, data)
+            mode, out = ("eager", eager(x, t_warm)) if got is None else got
+            GRAPH_EVALS[mode] += 1
+            s.set(graph=mode)
+        return out
 
     def cost_and_grad(x, aux):
         f, g, t_star, _ = value_and_grad(x, aux)

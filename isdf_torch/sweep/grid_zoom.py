@@ -224,7 +224,7 @@ def grid_sweep_warm_fused(grid: GridField, params, pts, t_warm, starts, durs,
     """K3.  Fused warm grid sweep → (t* (P,), d* (P,), grad_prel (P, 3)).
 
     d* and grad_prel are the trilinear value and its gradient at t*, which
-    callers linearise (sweep_sdf._grid_sweep_fused).  CUDA tensors launch the
+    callers linearise (sweep_sdf.sweep_value).  CUDA tensors launch the
     kernel (float32, contiguous, on the field's card); CPU tensors run
     :func:`grid_sweep_warm_fused_ref`."""
     global LAUNCHES_GRID

@@ -21,6 +21,10 @@ at the kernel's epilogue point, d* + g*·(p_rel(θ, t*) − p_rel*); the cold
 sweep (audits) takes only t* from K3 and re-evaluates the value through the
 trilinear interpolation and its gradient with autograd.
 
+A warm kernel sweep is three steps, so that the back end can hold the
+first and the last in CUDA graphs around the eager launch:
+:func:`kernel_args` (no grad), :func:`launch` and :func:`sweep_value`.
+
 The kernels take coarse_n in multiples of 8 and shapes they can compile
 (a ``ShapeSpec``, or a baked field).  Every other sweep runs the JAX
 package's non-fused path in PyTorch operations, as JAX runs it off the TPU
@@ -185,76 +189,89 @@ def _sweep_xla(shape, traj, params, p_eva, t_warm, coarse_n, refine_rounds,
     return sdf_star, t_star, _grad_prel(shape, traj, params, p_eva, t_star)
 
 
-def _sweep_fused(shape, traj, params, p_eva, t_warm, coarse_n, refine_rounds,
-                 warm_window):
-    """One kernel launch + one differentiable re-evaluation at t*: K1 for one
-    trajectory (p_eva (P, 3)), K2 for a batch (p_eva (B, P, 3), each
-    scenario with its own pose table and durations).
-
-    On the card the kernel runs in float32, as the Pallas kernel does; the
-    results come back in the working dtype."""
-    dtype = p_eva.dtype
-    kdtype = torch.float32 if p_eva.is_cuda else dtype
-    kernel = (fused_zoom.sweep_warm_fused_batched if traj.batched
-              else fused_zoom.sweep_warm_fused)
-    with torch.no_grad():
-        total = traj.total_duration
-        ts = torch.linspace(0.0, 1.0, coarse_n, dtype=dtype,
-                            device=p_eva.device) * total[..., None]
-        xs, Rs = traj_states(traj.detach(), params, ts)
-        pose = torch.cat([xs, Rs.flatten(-2)], dim=-1)
-        durs = traj.durations.detach()
-        starts = torch.cumsum(durs, -1) - durs
-        t_star, _, grad_prel = kernel(
-            shape, params,
-            *(a.to(kdtype).contiguous() for a in (
-                p_eva.detach(), t_warm.detach(), pose, starts, durs,
-                traj.coeffs.detach())),
-            coarse_n=coarse_n, rounds=refine_rounds, warm_window=warm_window)
-    t_star = t_star.to(dtype)
-    pw = (p_eva[..., 0], p_eva[..., 1], p_eva[..., 2])
-    sdf_star = sdf_at_time_c(shape, traj, params, pw, t_star)
-    return sdf_star, t_star, grad_prel.to(dtype)
-
-
-def _grid_kernel(shape, traj, params, p_eva, t_warm, coarse_n,
-                 refine_rounds, warm_window):
-    """One K3 launch on the shape's field → (t*, d*, g*) in the working
-    dtype, all constants of the graph (float32 on the card)."""
-    dtype = p_eva.dtype
-    kdtype = torch.float32 if p_eva.is_cuda else dtype
-    kernel = (grid_zoom.grid_sweep_warm_fused_batched if traj.batched
-              else grid_zoom.grid_sweep_warm_fused)
+def kernel_args(shape, traj, params, p_eva, t_warm, coarse_n):
+    """The warm sweep's first step: the kernel's arguments from a
+    trajectory, with no grad → (points, t_warm, [pose table,] starts,
+    durations, coefficients), contiguous, in float32 on the card (the
+    working dtype on the CPU).  The pose table (the poses at the coarse
+    times, for K1/K2) is left out for a baked field (K3)."""
+    kdtype = torch.float32 if p_eva.is_cuda else p_eva.dtype
     with torch.no_grad():
         durs = traj.durations.detach()
         starts = torch.cumsum(durs, -1) - durs
-        out = kernel(
-            shape.grid, params,
-            *(a.to(kdtype).contiguous() for a in (
-                p_eva.detach(), t_warm.detach(), starts, durs,
-                traj.coeffs.detach())),
-            coarse_n=coarse_n, rounds=refine_rounds, warm_window=warm_window)
+        if shape.grid is not None:
+            args = (p_eva.detach(), t_warm.detach(), starts, durs,
+                    traj.coeffs.detach())
+        else:
+            ts = torch.linspace(0.0, 1.0, coarse_n, dtype=p_eva.dtype,
+                                device=p_eva.device) \
+                * traj.total_duration[..., None]
+            xs, Rs = traj_states(traj.detach(), params, ts)
+            pose = torch.cat([xs, Rs.flatten(-2)], dim=-1)
+            args = (p_eva.detach(), t_warm.detach(), pose, starts, durs,
+                    traj.coeffs.detach())
+        return tuple(a.to(kdtype).contiguous() for a in args)
+
+
+def launch(shape, params, args, coarse_n, refine_rounds, warm_window,
+           dtype):
+    """The warm sweep's second step: one launch of K1/K2 (a shape with a
+    device SDF) or K3 (a baked field) on ``kernel_args``' arguments, the
+    entry point looked up on its module at each call → (t*, d*, g*) in
+    ``dtype``, all constants of the gradient."""
+    batched = args[0].dim() == 3
+    if shape.grid is not None:
+        kernel = (grid_zoom.grid_sweep_warm_fused_batched if batched
+                  else grid_zoom.grid_sweep_warm_fused)
+        body = shape.grid
+    else:
+        kernel = (fused_zoom.sweep_warm_fused_batched if batched
+                  else fused_zoom.sweep_warm_fused)
+        body = shape
+    with torch.no_grad():
+        out = kernel(body, params, *args, coarse_n=coarse_n,
+                     rounds=refine_rounds, warm_window=warm_window)
     return tuple(a.to(dtype) for a in out)
 
 
-def _grid_sweep_fused(shape, traj, params, p_eva, t_warm, coarse_n,
-                      refine_rounds, warm_window):
-    """K3 warm sweep: the differentiable value is the linearisation of the
-    body SDF at the epilogue point, sdf(p_rel) ≈ d* + g*·(p_rel − p_rel*),
-    with (d*, g*, p_rel*) constants and p_rel(traj, p, t*) the
+def sweep_value(shape, traj, params, p_eva, kout):
+    """The warm sweep's last step: the differentiable swept SDF at the
+    kernel's constant (t*, d*, g*).  K1/K2: the body SDF re-evaluated at
+    t*.  K3: the linearisation of the body SDF at the epilogue point,
+    sdf(p_rel) ≈ d* + g*·(p_rel − p_rel*), with p_rel(traj, p, t*) the
     differentiable pose chain — how the reference consumes (sdf_value,
-    gradp_rel) pairs (back_end_optimizer.hpp:619-627).  The value equals d*;
-    the voxel field is not read outside the kernel."""
-    t_star, d0, g0 = _grid_kernel(shape, traj, params, p_eva, t_warm,
-                                  coarse_n, refine_rounds, warm_window)
+    gradp_rel) pairs (back_end_optimizer.hpp:619-627).  Its value equals
+    d*; the voxel field is not read outside the kernel."""
+    t_star, d0, g0 = kout
     pw = (p_eva[..., 0], p_eva[..., 1], p_eva[..., 2])
+    if shape.grid is None:
+        return sdf_at_time_c(shape, traj, params, pw, t_star)
     pos, vel, acc, _ = pvaj_components(traj, t_star, n_orders=3)
     x3, R = pose_components(pos, vel, acc, params)
     rx, ry, rz = rel_components(pw, x3, R)
-    sdf_star = (d0 + g0[..., 0] * (rx - rx.detach())
-                + g0[..., 1] * (ry - ry.detach())
-                + g0[..., 2] * (rz - rz.detach()))
-    return sdf_star, t_star, g0
+    return (d0 + g0[..., 0] * (rx - rx.detach())
+            + g0[..., 1] * (ry - ry.detach())
+            + g0[..., 2] * (rz - rz.detach()))
+
+
+def _kernel(shape, traj, params, p_eva, t_warm, coarse_n, refine_rounds,
+            warm_window):
+    """One launch of K1/K2 (p_eva (P, 3) or (B, P, 3), a pose table each)
+    or K3 (a baked field) → (t*, d*, g*) in the working dtype, all constants
+    of the graph.  On the card the kernel runs in float32, as the Pallas
+    kernel does."""
+    return launch(shape, params,
+                  kernel_args(shape, traj, params, p_eva, t_warm, coarse_n),
+                  coarse_n, refine_rounds, warm_window, p_eva.dtype)
+
+
+def _sweep_fused(shape, traj, params, p_eva, t_warm, coarse_n, refine_rounds,
+                 warm_window):
+    """One kernel launch + the differentiable value at its t*
+    (:func:`sweep_value`)."""
+    kout = _kernel(shape, traj, params, p_eva, t_warm, coarse_n,
+                   refine_rounds, warm_window)
+    return sweep_value(shape, traj, params, p_eva, kout), kout[0], kout[2]
 
 
 def _grad_prel(shape, traj, params, p_eva, t_star):
@@ -284,8 +301,8 @@ def sweep_sdf(shape, traj, params, p_eva, coarse_n: int = 128,
                           refine_rounds, 0.3)
     t_warm = torch.zeros_like(p_eva[..., 0])
     if shape.grid is not None:
-        t_star, _, _ = _grid_kernel(shape, traj, params, p_eva, t_warm,
-                                    coarse_n, refine_rounds, 0.3)
+        t_star, _, _ = _kernel(shape, traj, params, p_eva, t_warm, coarse_n,
+                               refine_rounds, 0.3)
         pw = (p_eva[..., 0], p_eva[..., 1], p_eva[..., 2])
         sdf_star = sdf_at_time_c(shape, traj, params, pw, t_star)
         return sdf_star, t_star, _grad_prel(shape, traj, params, p_eva,
@@ -302,11 +319,6 @@ def sweep_sdf_warm(shape, traj, params, p_eva, t_warm, coarse_n: int = 64,
     iterations)."""
     dev = resolve_device(device)
     check_on(dev, p_eva=p_eva, t_warm=t_warm, durations=traj.durations)
-    if not kernel_ok(shape, coarse_n):
-        sweep = _sweep_xla
-    elif shape.grid is not None:
-        sweep = _grid_sweep_fused
-    else:
-        sweep = _sweep_fused
+    sweep = _sweep_fused if kernel_ok(shape, coarse_n) else _sweep_xla
     return sweep(shape, traj, params, p_eva, t_warm, coarse_n, refine_rounds,
                  warm_window)

@@ -250,7 +250,7 @@ def test_linearised_value_gradient_matches_jax_expression(monkeypatch,
     pts = stack([torch.as_tensor(c["pts"]) for c in cases])
     out = tuple(stack([torch.as_tensor(v[i]) for v in fixed])
                 for i in range(3))
-    monkeypatch.setattr(ss, "_grid_kernel", lambda *a, **k: out)
+    monkeypatch.setattr(ss, "_kernel", lambda *a, **k: out)
     s, _, _ = sweep_sdf_warm(shape, PolyTraj(durs, coeffs), params, pts,
                              torch.zeros(pts.shape[:-1], dtype=F64),
                              device="cpu")
