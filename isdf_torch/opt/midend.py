@@ -5,11 +5,27 @@ Fits a MINCO trajectory through the A* waypoints minimizing
   energy + ρ_mid Σ T + w_pr Σ_i ‖pos_i − ref_i‖³  [+ attitude tracking]
 where pos_i samples the start of piece i+1 (local time T_{i+1}/integralRes)
 and ref_i are the subsampled A* waypoints.  The solution x = [τ | ξ]
-warm-starts the back end.  Each cost evaluation is an ``obs`` span,
-``mid_end.eval``.
+warm-starts the back end.
+
+The cost is :class:`MidCost`, a function of tensors only (x, the boundary
+states, the waypoint attractors, the attitude references) with its scalars
+bound.  On the card an evaluation, forward and backward, replays one CUDA
+graph (:class:`_Graph`): x and the problem's tensors are copied into its
+static inputs and its one flat output (f, g) is cloned.  The graphs are
+kept per key (:meth:`MidCost.key`: the scalars, the pose map, dtype, device
+and shapes) in a small LRU shared by every solve; a key's first ``WARMUP``
+evaluations run eagerly, then it is captured once and replayed.  A capture
+that raises leaves its key eager for good (``GRAPH_FAILURES``).  On the
+CPU every evaluation is the eager one.  Each evaluation is an ``obs`` span,
+``mid_end.eval``, whose ``graph`` attribute says how it ran (``replay``,
+``capture`` or ``eager``, counted in ``GRAPH_EVALS``).
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Any
 
 import torch
 
@@ -18,8 +34,127 @@ from isdf_torch.core import minco, timemap
 from isdf_torch.core.poly import beta
 from isdf_torch.opt import lbfgs
 from isdf_torch.opt.attitude import attitude_penalty, pad_attitude_refs
-from isdf_torch.opt.backend import build_traj, pack
+from isdf_torch.opt.backend import (_capture, _release_generators,
+                                    build_traj, pack)
 from isdf_torch.utils import obs
+
+GRAPH_EVALS = {"replay": 0, "capture": 0, "eager": 0}   # evaluations so far
+GRAPH_FAILURES = 0       # keys whose capture raised (then run eagerly)
+GRAPH_KEYS = 8           # keys whose graphs are kept, least recent first out
+WARMUP = 2               # eager evaluations of a new key before its capture
+
+
+@dataclass(frozen=True)
+class MidCost:
+    """The mid end's cost with its scalars bound; ``att`` None (or
+    ``weight_ar`` 0) leaves the attitude term out."""
+    N: int
+    rho_mid: float
+    weight_pr: float
+    integral_res: int
+    weight_ar: float
+    smooth_fac: float
+    params: Any
+    bridge: bool
+
+    def cost(self, x, head, tail, ref_points, att):
+        traj, T, _ = build_traj(x, self.N, head, tail)
+        e = minco.energy(traj.coeffs, T)
+        t_cost = self.rho_mid * torch.sum(T)
+        s = (1.0 / self.integral_res) * T[1:]
+        pos = torch.einsum("nk,nkd->nd", beta(s, 0), traj.coeffs[1:])
+        diff = pos - ref_points
+        dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
+        total = e + t_cost + self.weight_pr * torch.sum(dist ** 3)
+        if att is not None and self.weight_ar > 0.0:
+            total = total + attitude_penalty(
+                traj, self.params, att, self.weight_ar, self.smooth_fac,
+                self.integral_res, bridge=self.bridge)
+        return total
+
+    def value_and_grad(self, x, head, tail, ref_points, att):
+        """→ (f, g), detached."""
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            f = self.cost(xg, head, tail, ref_points, att)
+            (g,) = torch.autograd.grad(f, xg)
+        return f.detach(), g
+
+    def key(self, x, ref_points, att) -> tuple:
+        """What the evaluation's work depends on besides the tensors'
+        values: a graph captured under one key replays for every other."""
+        return (self, type(self.params), x.dtype, x.device,
+                tuple(ref_points.shape),
+                None if att is None else tuple(att.shape))
+
+
+class _Graph:
+    """The captured evaluation of one key.  Each replay copies x and the
+    problem's tensors into the static inputs, replays, and clones the one
+    flat output (f, g), so that no evaluation's answer aliases the next
+    one's."""
+
+    def __init__(self, cost: MidCost):
+        self.cost = cost
+        self.seen = 0
+        self.failed = False
+        self.error = None        # what a failed capture raised
+        self.graph = None
+
+    def run(self, args):
+        """(mode, (f, g)) with mode "replay" or "capture", or None where
+        this evaluation runs eagerly: the key's first ``WARMUP``
+        evaluations, and every one after a failed capture."""
+        global GRAPH_FAILURES
+        if self.failed or self.seen < WARMUP:
+            self.seen += 1
+            return None
+        if self.graph is not None:
+            return "replay", self._replay(args)
+        try:
+            return "capture", self._replay(args)
+        except Exception as exc:
+            self.failed, self.error = True, exc
+            self.graph = self.static = None
+            GRAPH_FAILURES += 1
+            _release_generators()
+            return None
+
+    def _replay(self, args):
+        if self.graph is None:
+            self.static = [None if a is None else torch.empty_like(a)
+                           for a in args]
+        for s, a in zip(self.static, args):
+            if s is not None:
+                s.copy_(a)
+        if self.graph is None:
+            graph = torch.cuda.CUDAGraph()
+            self.flat = _capture(graph, lambda: _flat(
+                *self.cost.value_and_grad(*self.static)))
+            self.graph = graph
+        self.graph.replay()
+        out = self.flat.clone()
+        return out[0], out[1:]
+
+
+def _flat(f, g):
+    """f and g in one flat tensor."""
+    return torch.cat([f.reshape(1), g])
+
+
+_GRAPHS: "OrderedDict[tuple, _Graph]" = OrderedDict()
+
+
+def _graph_for(cost: MidCost, x, ref_points, att) -> _Graph:
+    key = cost.key(x, ref_points, att)
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        entry = _GRAPHS[key] = _Graph(cost)
+        if len(_GRAPHS) > GRAPH_KEYS:
+            _GRAPHS.popitem(last=False)
+    else:
+        _GRAPHS.move_to_end(key)
+    return entry
 
 
 def make_cost_fn(head, tail, N: int, ref_points, rho_mid: float,
@@ -27,29 +162,26 @@ def make_cost_fn(head, tail, N: int, ref_points, rho_mid: float,
                  weight_ar: float = 0.0, smooth_fac: float = 1e-2,
                  params=None, bridge: bool = True):
     """ref_points: (N−1, 3) waypoint attractors; att: optional (N+1, 3, 3)
-    junction attitude references (enables the attitude term)."""
+    junction attitude references (enables the attitude term).  On CUDA
+    tensors the evaluation replays a graph (module docstring)."""
+    if weight_ar <= 0.0:
+        att = None
+    cost = MidCost(N, rho_mid, weight_pr, integral_res, weight_ar,
+                   smooth_fac, params, bridge)
+    args = (head, tail, ref_points, att)
 
     def raw_cost(x):
-        traj, T, q = build_traj(x, N, head, tail)
-        e = minco.energy(traj.coeffs, T)
-        t_cost = rho_mid * torch.sum(T)
-        s = (1.0 / integral_res) * T[1:]
-        pos = torch.einsum("nk,nkd->nd", beta(s, 0), traj.coeffs[1:])
-        diff = pos - ref_points
-        dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
-        total = e + t_cost + weight_pr * torch.sum(dist ** 3)
-        if att is not None and weight_ar > 0.0:
-            total = total + attitude_penalty(
-                traj, params, att, weight_ar, smooth_fac, integral_res,
-                bridge=bridge)
-        return total
+        return cost.cost(x, *args)
 
     def cost_and_grad(x, aux):
-        with obs.span("mid_end.eval"), torch.enable_grad():
-            xg = x.detach().requires_grad_(True)
-            f = raw_cost(xg)
-            (g,) = torch.autograd.grad(f, xg)
-        return f.detach(), g, aux
+        graph = _graph_for(cost, x, ref_points, att) if x.is_cuda else None
+        with obs.span("mid_end.eval") as s:
+            got = None if graph is None else graph.run((x,) + args)
+            mode, (f, g) = ("eager", cost.value_and_grad(x, *args)) \
+                if got is None else got
+            GRAPH_EVALS[mode] += 1
+            s.set(graph=mode)
+        return f, g, aux
 
     return cost_and_grad, raw_cost
 
