@@ -16,32 +16,23 @@ warm-started across outer iterations and frozen in the gradient (envelope
 theorem).  All gradients come from autograd through this scalar.
 
 On the card an evaluation replays two CUDA graphs around the sweep
-kernel's eager launch (:class:`SplitCost`, :class:`_Graphs`): G1 computes
-the kernel's inputs from x, G2 the differentiable rest of the cost and its
-gradient at the kernel's constant (t*, d*, g*).  The kernel stays an eager
-call of its entry point, once an evaluation.  The graphs are kept per key (the
-shapes, the settings, the shape and pose map) in a small LRU shared by every
-solve; a key's first ``WARMUP`` evaluations run eagerly, then it is captured
-once and replayed.  The graphs engage only on CUDA tensors, on the kernel
-sweep (``sweep_sdf.kernel_ok``) and without an "sp" group; a capture that
-raises leaves its key eager for good (``GRAPH_FAILURES``).  A batch's
-key runs under cuSOLVER's and cuBLAS's linear algebra, one trajectory's
-under PyTorch's default.
+kernel's eager launch (:class:`SplitCost`): G1 computes the kernel's inputs
+from x, G2 the rest of the cost and its gradient at the kernel's constant
+(t*, d*, g*).  ``GRAPHS`` keeps them per :meth:`SplitCost.key` (lifecycle:
+``opt/graphs.py``), on the kernel sweep (``sweep_sdf.kernel_ok``) without
+an "sp" group.  A batch's key runs under cuSOLVER's and cuBLAS's linear
+algebra, one trajectory's under PyTorch's default.
 
 Each evaluation is an ``obs`` span, ``back_end.eval``, whose ``graph``
-attribute says how it ran (``replay``, ``capture`` or ``eager``, counted in
-``GRAPH_EVALS``).  An eager evaluation has its parts as children:
-``eval.traj`` (MINCO, energy, time), ``eval.dyn`` (the integral penalties),
-``eval.sweep`` (the sweep kernel and the re-evaluation at t*) and
-``eval.backward`` (the gradient); a graph evaluation has one,
-``eval.sweep`` around the kernel's launch.
+attribute says how it ran (``replay``, ``capture`` or ``eager``); its one
+child, ``eval.sweep``, is the sweep kernel's launch (eagerly, with the
+re-evaluation at t*).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from collections import OrderedDict
 from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional
 
@@ -54,6 +45,7 @@ from isdf_torch.core.smoothing import clip, smoothed_l1
 from isdf_torch.device import resolve_device
 from isdf_torch.opt import lbfgs, lmbm
 from isdf_torch.opt.attitude import attitude_penalty, pad_attitude_refs
+from isdf_torch.opt.graphs import GraphCache, capture, copy_in
 from isdf_torch.parallel.mesh import copy_to_sp, reduce_from_sp
 from isdf_torch.sweep.sweep_sdf import (kernel_args, kernel_ok, launch,
                                         sweep_sdf_warm, sweep_value)
@@ -63,10 +55,6 @@ WARM_WINDOW = 0.3        # the warm sweep's window around the last t*
 # the sweep as imported: a fault or a test that replaces it on this module
 # replaces it in the one-piece evaluation, which the graphs would bypass
 _SWEEP = sweep_sdf_warm
-GRAPH_EVALS = {"replay": 0, "capture": 0, "eager": 0}   # evaluations so far
-GRAPH_FAILURES = 0       # keys whose capture raised (then run eagerly)
-GRAPH_KEYS = 8           # keys whose graphs are kept, least recent first out
-WARMUP = 2               # eager evaluations of a new key before its capture
 
 
 @dataclass(frozen=True)
@@ -258,20 +246,6 @@ class SplitCost:
         return bd.total, g, bd
 
 
-_GRAPHS: "OrderedDict[tuple, _Graphs]" = OrderedDict()
-
-
-def _capture(graph, fn, pool=None):
-    """fn() captured into ``graph``; the caller's stream comes back also
-    where the capture raises."""
-    stream = torch.cuda.current_stream()
-    try:
-        with torch.cuda.graph(graph, pool=pool):
-            return fn()
-    finally:
-        torch.cuda.set_stream(stream)
-
-
 @contextlib.contextmanager
 def _linalg(lib):
     """PyTorch's linear-algebra library ``lib`` inside the block (None: the
@@ -287,77 +261,32 @@ def _linalg(lib):
         torch.backends.cuda.preferred_linalg_library(was)
 
 
-def _release_generators():
-    """A capture that CUDA refused ends with the random generators still in
-    capture mode (the next random draw on the card raises); one empty
-    capture releases them."""
-    with contextlib.suppress(Exception):
-        _capture(torch.cuda.CUDAGraph(), lambda: None)
-
-
 class _Graphs:
-    """G1 and G2 of one key (:meth:`SplitCost.key`).  Each evaluation copies
-    x, the warm seeds and the problem's tensors into G1's static inputs,
-    replays G1, launches the kernel eagerly on G1's outputs, copies its
-    outputs into G2's static inputs, replays G2 and clones G2's one flat
-    output, so that no evaluation's answer aliases the next one's.  Holds
-    the first SplitCost of its key, and with it the shape."""
+    """G1 and G2 of one key, captured on the first call.  A call copies its
+    inputs into G1's, replays G1, launches the kernel on G1's outputs,
+    copies the kernel's into G2's inputs, replays G2 and clones its output,
+    so that no evaluation's answer aliases the next one's."""
 
-    def __init__(self, split: SplitCost, batched: bool):
+    def __init__(self, split: SplitCost):
         self.split = split
-        # PyTorch's default takes a batch of small MINCO systems to MAGMA's
-        # LU, which no graph can hold, and one system to cuSOLVER's: every
-        # evaluation of a batch's key, eager or not, runs under cuSOLVER's
-        # and cuBLAS's, so that its replays repeat its warm-ups bit for bit
-        self.linalg = "cusolver" if batched else None
-        self.seen = 0
-        self.failed = False
-        self.error = None        # what a failed capture raised
-        self.g1 = self.g2 = None
+        self.static = self.kout = self.g1 = self.g2 = None
 
-    def run(self, x, t_warm, d: CostData):
-        """(mode, (f, g, t*, breakdown)) with mode "replay" or "capture",
-        or None where this evaluation runs eagerly: the key's first
-        ``WARMUP`` evaluations, and every one after a failed capture."""
-        global GRAPH_FAILURES
-        if self.failed or self.seen < WARMUP:
-            self.seen += 1
-            return None
-        if self.g2 is not None:
-            return "replay", self._replay(x, t_warm, d)
-        try:
-            return "capture", self._replay(x, t_warm, d)
-        except Exception as exc:
-            self.failed, self.error = True, exc
-            self.g1 = self.g2 = None
-            GRAPH_FAILURES += 1
-            _release_generators()
-            return None
-
-    def _replay(self, x, t_warm, d: CostData):
+    def __call__(self, x, t_warm, d: CostData):
         split = self.split
-        if self.g1 is None:
-            self.static = [None if a is None else torch.empty_like(a)
-                           for a in (x, t_warm) + tuple(d)]
-        for s, a in zip(self.static, (x, t_warm) + tuple(d)):
-            if s is not None:
-                s.copy_(a)
+        self.static = copy_in(self.static, (x, t_warm) + tuple(d))
         sx, st, *sd = self.static
         sd = CostData(*sd)
         if self.g1 is None:
             g1 = torch.cuda.CUDAGraph()
-            self.args = _capture(g1, lambda: split.kernel_args(sx, st, sd))
+            self.args = capture(g1, lambda: split.kernel_args(sx, st, sd))
             self.g1 = g1
         self.g1.replay()
         with obs.span("eval.sweep"):
             kout = split.launch(self.args, x.dtype)
-        if self.g2 is None:
-            self.kout = tuple(torch.empty_like(k) for k in kout)
-        for s, k in zip(self.kout, kout):
-            s.copy_(k)
+        self.kout = copy_in(self.kout, kout)
         if self.g2 is None:
             g2 = torch.cuda.CUDAGraph()
-            self.f_shape, self.g_shape, self.flat = _capture(
+            self.f_shape, self.g_shape, self.flat = capture(
                 g2, lambda: _flat(*split.remainder(sx, sd, self.kout)),
                 pool=self.g1.pool())
             self.g2 = g2
@@ -374,16 +303,7 @@ def _flat(f, g, bd: CostBreakdown):
         [torch.stack(tuple(bd)).reshape(-1), g.reshape(-1)])
 
 
-def _graphs_for(split: SplitCost, x, d: CostData) -> _Graphs:
-    key = split.key(x, d)
-    entry = _GRAPHS.get(key)
-    if entry is None:
-        entry = _GRAPHS[key] = _Graphs(split, x.dim() == 2)
-        if len(_GRAPHS) > GRAPH_KEYS:
-            _GRAPHS.popitem(last=False)
-    else:
-        _GRAPHS.move_to_end(key)
-    return entry
+GRAPHS = GraphCache(_Graphs)    # the back end's graphs, by SplitCost.key
 
 
 def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
@@ -415,10 +335,8 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
     graphable = sp_group is None and kernel_ok(shape, coarse_n)
 
     def raw_cost(x, t_warm):
-        with obs.span("eval.traj"):
-            traj, e, t_cost = split.traj_terms(x, data)
-        with obs.span("eval.dyn"):
-            dyn = split.dyn_term(traj, data)
+        traj, e, t_cost = split.traj_terms(x, data)
+        dyn = split.dyn_term(traj, data)
         with obs.span("eval.sweep"):
             safety, t_star = swept_penalty(
                 shape, traj, params, w, points, mask, t_warm, coarse_n,
@@ -429,19 +347,21 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
     def eager(x, t_warm):
         xg = x.detach().requires_grad_(True)
         f, (t_star, bd) = raw_cost(xg, t_warm)
-        with obs.span("eval.backward"):
-            (g,) = torch.autograd.grad(f.sum(), xg)
+        (g,) = torch.autograd.grad(f.sum(), xg)
         return f.detach(), g, t_star, CostBreakdown(
             *(v.detach() for v in bd))
 
     def value_and_grad(x, t_warm):
-        graphs = _graphs_for(split, x, data) if (
+        entry = GRAPHS.entry(split.key(x, data), split) if (
             graphable and x.is_cuda and sweep_sdf_warm is _SWEEP) else None
+        # every evaluation of a batch's key runs under cuSOLVER: PyTorch's
+        # default takes a batch of small MINCO systems to MAGMA's LU, which
+        # no graph holds, and replays must repeat the warm-ups bit for bit
+        lib = "cusolver" if entry is not None and x.dim() == 2 else None
         with obs.span("back_end.eval") as s, torch.enable_grad(), \
-                _linalg(None if graphs is None else graphs.linalg):
-            got = None if graphs is None else graphs.run(x, t_warm, data)
-            mode, out = ("eager", eager(x, t_warm)) if got is None else got
-            GRAPH_EVALS[mode] += 1
+                _linalg(lib):
+            mode, out = GRAPHS.run(entry, (x, t_warm, data),
+                                   lambda: eager(x, t_warm))
             s.set(graph=mode)
         return out
 

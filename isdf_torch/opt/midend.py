@@ -10,20 +10,13 @@ warm-starts the back end.
 The cost is :class:`MidCost`, a function of tensors only (x, the boundary
 states, the waypoint attractors, the attitude references) with its scalars
 bound.  On the card an evaluation, forward and backward, replays one CUDA
-graph (:class:`_Graph`): x and the problem's tensors are copied into its
-static inputs and its one flat output (f, g) is cloned.  The graphs are
-kept per key (:meth:`MidCost.key`: the scalars, the pose map, dtype, device
-and shapes) in a small LRU shared by every solve; a key's first ``WARMUP``
-evaluations run eagerly, then it is captured once and replayed.  A capture
-that raises leaves its key eager for good (``GRAPH_FAILURES``).  On the
-CPU every evaluation is the eager one.  Each evaluation is an ``obs`` span,
-``mid_end.eval``, whose ``graph`` attribute says how it ran (``replay``,
-``capture`` or ``eager``, counted in ``GRAPH_EVALS``).
+graph (:class:`_Graph`), kept in ``GRAPHS`` per :meth:`MidCost.key`
+(lifecycle: ``opt/graphs.py``).  Each evaluation is an ``obs`` span,
+``mid_end.eval``, whose ``graph`` attribute says how it ran.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any
 
@@ -34,14 +27,9 @@ from isdf_torch.core import minco, timemap
 from isdf_torch.core.poly import beta
 from isdf_torch.opt import lbfgs
 from isdf_torch.opt.attitude import attitude_penalty, pad_attitude_refs
-from isdf_torch.opt.backend import (_capture, _release_generators,
-                                    build_traj, pack)
+from isdf_torch.opt.backend import build_traj, pack
+from isdf_torch.opt.graphs import GraphCache, capture, copy_in
 from isdf_torch.utils import obs
-
-GRAPH_EVALS = {"replay": 0, "capture": 0, "eager": 0}   # evaluations so far
-GRAPH_FAILURES = 0       # keys whose capture raised (then run eagerly)
-GRAPH_KEYS = 8           # keys whose graphs are kept, least recent first out
-WARMUP = 2               # eager evaluations of a new key before its capture
 
 
 @dataclass(frozen=True)
@@ -89,47 +77,19 @@ class MidCost:
 
 
 class _Graph:
-    """The captured evaluation of one key.  Each replay copies x and the
-    problem's tensors into the static inputs, replays, and clones the one
-    flat output (f, g), so that no evaluation's answer aliases the next
-    one's."""
+    """The evaluation of one key, captured on the first call.  A call copies
+    its inputs into the graph's, replays it and clones its output (f | g),
+    so that no evaluation's answer aliases the next one's."""
 
     def __init__(self, cost: MidCost):
         self.cost = cost
-        self.seen = 0
-        self.failed = False
-        self.error = None        # what a failed capture raised
-        self.graph = None
+        self.static = self.graph = None
 
-    def run(self, args):
-        """(mode, (f, g)) with mode "replay" or "capture", or None where
-        this evaluation runs eagerly: the key's first ``WARMUP``
-        evaluations, and every one after a failed capture."""
-        global GRAPH_FAILURES
-        if self.failed or self.seen < WARMUP:
-            self.seen += 1
-            return None
-        if self.graph is not None:
-            return "replay", self._replay(args)
-        try:
-            return "capture", self._replay(args)
-        except Exception as exc:
-            self.failed, self.error = True, exc
-            self.graph = self.static = None
-            GRAPH_FAILURES += 1
-            _release_generators()
-            return None
-
-    def _replay(self, args):
-        if self.graph is None:
-            self.static = [None if a is None else torch.empty_like(a)
-                           for a in args]
-        for s, a in zip(self.static, args):
-            if s is not None:
-                s.copy_(a)
+    def __call__(self, *args):
+        self.static = copy_in(self.static, args)
         if self.graph is None:
             graph = torch.cuda.CUDAGraph()
-            self.flat = _capture(graph, lambda: _flat(
+            self.flat = capture(graph, lambda: _flat(
                 *self.cost.value_and_grad(*self.static)))
             self.graph = graph
         self.graph.replay()
@@ -142,19 +102,7 @@ def _flat(f, g):
     return torch.cat([f.reshape(1), g])
 
 
-_GRAPHS: "OrderedDict[tuple, _Graph]" = OrderedDict()
-
-
-def _graph_for(cost: MidCost, x, ref_points, att) -> _Graph:
-    key = cost.key(x, ref_points, att)
-    entry = _GRAPHS.get(key)
-    if entry is None:
-        entry = _GRAPHS[key] = _Graph(cost)
-        if len(_GRAPHS) > GRAPH_KEYS:
-            _GRAPHS.popitem(last=False)
-    else:
-        _GRAPHS.move_to_end(key)
-    return entry
+GRAPHS = GraphCache(_Graph)    # the mid end's graphs, by MidCost.key
 
 
 def make_cost_fn(head, tail, N: int, ref_points, rho_mid: float,
@@ -174,12 +122,11 @@ def make_cost_fn(head, tail, N: int, ref_points, rho_mid: float,
         return cost.cost(x, *args)
 
     def cost_and_grad(x, aux):
-        graph = _graph_for(cost, x, ref_points, att) if x.is_cuda else None
+        entry = GRAPHS.entry(cost.key(x, ref_points, att), cost) \
+            if x.is_cuda else None
         with obs.span("mid_end.eval") as s:
-            got = None if graph is None else graph.run((x,) + args)
-            mode, (f, g) = ("eager", cost.value_and_grad(x, *args)) \
-                if got is None else got
-            GRAPH_EVALS[mode] += 1
+            mode, (f, g) = GRAPHS.run(entry, (x,) + args,
+                                      lambda: cost.value_and_grad(x, *args))
             s.set(graph=mode)
         return f, g, aux
 

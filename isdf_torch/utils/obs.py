@@ -7,9 +7,9 @@ batched solver's loop trips.  The recorder records only while
 :func:`span` costs a check of two module-level flags and returns a shared
 no-op.  While recording, each span opens a profiler ``record_function`` of
 its own name, so it shows on the device trace's timeline, and its times are
-taken on that trace's clock (``time.time_ns``, the Unix epoch, which the
-profiler's host events share to a few microseconds).  Closed spans go to a
-bounded in-memory store that :func:`spans` reads.
+taken on that trace's clock (``time.time_ns``, the Unix epoch).  Closed
+spans go to a bounded in-memory store that :func:`spans` reads, with the
+times of their profiler events where it is given the finished profiler.
 
 ``Controller`` is copied unchanged from ``isdf_tpu/utils/obs.py``: the
 pause/stop/step affordance of the reference's /debug_cmd opcodes 21/22
@@ -27,6 +27,7 @@ from dataclasses import dataclass
 from typing import List
 
 import torch
+from torch._C._autograd import _profiler_enabled
 from torch.autograd import profiler as _profiler
 
 CAPACITY = 1 << 17               # closed spans kept; the oldest go first
@@ -44,7 +45,7 @@ class Span:
     one batched solve) and ``attrs``, the counts set at close."""
 
     __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "request",
-                 "attrs", "_rf")
+                 "attrs", "_rf", "_traced")
 
     def __init__(self, name: str):
         self.name = name
@@ -62,6 +63,8 @@ class Span:
         self.parent = up.id if up is not None else 0
         self.request = up.request if up is not None else self.id
         stack.append(self)
+        # whether a profiler records this thread (its flag is the process's)
+        self._traced = _profiler_enabled()
         self._rf = torch._C._profiler._RecordFunctionFast(self.name)
         self._rf.__enter__()
         self.start_ns = time.time_ns()
@@ -126,10 +129,27 @@ def tracing():
         _forced -= 1
 
 
-def spans() -> List[Span]:
+def spans(prof=None) -> List[Span]:
     """The closed spans kept, oldest first (a child closes before its
-    parent)."""
-    return list(_store)
+    parent).  With ``prof``, a finished ``torch.profiler.profile``, the n-th
+    span of a name that it recorded takes the times of its n-th event of
+    that name: span and event agree by construction."""
+    kept = list(_store)
+    if prof is None:
+        return kept
+    res = prof.profiler.kineto_results
+    mine = sorted((s for s in kept                 # by name, as they opened
+                   if s._traced and s.start_ns >= res.trace_start_ns()),
+                  key=lambda s: (s.name, s.id))
+    names = {s.name for s in mine}
+    theirs = sorted((e.name(), e.start_ns(), e.end_ns())
+                    for e in res.events() if e.name() in names)
+    if [s.name for s in mine] != [name for name, _, _ in theirs]:
+        raise ValueError("the spans a profiler recorded and its events of "
+                         "their names differ")
+    for s, (_, start, end) in zip(mine, theirs):
+        s.start_ns, s.end_ns = start, end
+    return kept
 
 
 def clear():

@@ -1,15 +1,15 @@
 """The back end's evaluation cut at the sweep kernel (``backend.SplitCost``)
-and the CUDA graphs that replay its two sides (``backend._Graphs``).
+and the CUDA graphs that replay its two sides (``backend._Graphs``, kept in
+``backend.GRAPHS``; their lifecycle is ``tests/test_torch_graphs.py``'s).
 
 On the CPU: the cut evaluation gives the one-piece evaluation's f, g, t* and
 breakdown bit for bit on the kernels' plain versions (K3 on the L mesh, K1
 on the RoundedCone and under PlanarPose, K2 and batched K3 at B = 4, the
 attitude term); every CPU evaluation runs eagerly, also with an "sp" group
-and on the non-fused sweep, and makes no capture; the graph cache's LRU and
-the fall-back of a key whose capture raises.  On the card (``cuda``):
+and on the non-fused sweep, and makes no capture.  On the card (``cuda``):
 replayed answers against the one-piece ones, static inputs refreshed for a
 new problem, no aliasing across evaluations, one kernel call and launch an
-evaluation, and a forced capture failure."""
+evaluation."""
 
 import socket
 
@@ -21,8 +21,9 @@ import torch.distributed as dist
 from isdf_torch.config import Config
 from isdf_torch.core import flatness as fl
 from isdf_torch.core import timemap
-from isdf_torch.opt import backend
+from isdf_torch.opt import backend, graphs
 from isdf_torch.opt.attitude import pad_attitude_refs
+from isdf_torch.opt.graphs import GraphCache
 from isdf_torch.parallel import batch as pb
 from isdf_torch.shapes import grid_shape, make_shape
 from isdf_torch.shapes import mesh as meshlib
@@ -34,7 +35,7 @@ F64 = torch.float64
 CONF = dict(integralIntervs=8, sweep_coarse_samples=64,
             sweep_refine_rounds=4, vmax=5.0, omgmax=5.0, thetamax=1.5,
             safety_hor=0.4, mem_size=8)
-EVAL_PARTS = {"eval.traj", "eval.dyn", "eval.sweep", "eval.backward"}
+EVAL_PARTS = {"eval.sweep"}
 
 
 def _l_shape(device, res, margin):
@@ -177,14 +178,14 @@ def test_split_kernel_inputs_are_the_one_piece_sweeps(case, monkeypatch):
 
 
 def _count(fn, *a):
-    before = dict(backend.GRAPH_EVALS)
-    keys = len(backend._GRAPHS)
+    before = dict(backend.GRAPHS.evals)
+    keys = len(backend.GRAPHS.entries)
     obs.clear()
     with obs.tracing():
         out = fn(*a)
     evals = [s for s in obs.spans() if s.name == "back_end.eval"]
-    moved = {k: backend.GRAPH_EVALS[k] - before[k] for k in before}
-    return out, evals, moved, len(backend._GRAPHS) - keys
+    moved = {k: backend.GRAPHS.evals[k] - before[k] for k in before}
+    return out, evals, moved, len(backend.GRAPHS.entries) - keys
 
 
 def _free_port():
@@ -212,8 +213,8 @@ def sp_group():
                                  "no_spec", "lockstep"])
 def test_graphs_stand_aside(how, request):
     """Every CPU evaluation runs eagerly and captures nothing: the one-piece
-    evaluation with its four parts, its ``back_end.eval`` span marked
-    ``graph = eager``, the eager counter up by one an evaluation."""
+    evaluation with its sweep as its one part, its ``back_end.eval`` span
+    marked ``graph = eager``, the eager counter up by one an evaluation."""
     conf = dict(CONF)
     body = "Ball"
     if how == "non_fused_coarse":
@@ -241,51 +242,6 @@ def test_graphs_stand_aside(how, request):
     for s in evals:
         assert s.attrs["graph"] == "eager"
         assert {c.name for c in spans if c.parent == s.id} == EVAL_PARTS
-
-
-def test_graph_cache_is_a_small_lru(monkeypatch):
-    """One entry a key, the least recently used first out beyond
-    ``GRAPH_KEYS``; an entry holds its shape; a new key's first ``WARMUP``
-    evaluations run eagerly."""
-    monkeypatch.setattr(backend, "_GRAPHS", type(backend._GRAPHS)())
-    args, kw, x, tw, data = _problem("Ball")
-    shape, params, w = args[:3]
-    splits = [backend.SplitCost(shape, params, w, n, 8, 64, 4)
-              for n in range(1, backend.GRAPH_KEYS + 2)]
-    xs = [torch.zeros(4 * n - 3, dtype=F64) for n in range(1, 12)]
-    entries = [backend._graphs_for(s, xs[i], data)
-               for i, s in enumerate(splits[:-1])]
-    assert len(backend._GRAPHS) == backend.GRAPH_KEYS
-    assert backend._graphs_for(splits[0], xs[0], data) is entries[0]
-    backend._graphs_for(splits[-1], xs[len(splits) - 1], data)
-    assert len(backend._GRAPHS) == backend.GRAPH_KEYS
-    kept = list(backend._GRAPHS.values())
-    assert entries[0] in kept and entries[1] not in kept
-    assert entries[0].split.shape is shape
-    other = backend.SplitCost(shape, params,
-                              backend.BackendWeights(**{
-                                  **w.__dict__, "weight_p": 1.0}), 1, 8, 64, 4)
-    assert backend._graphs_for(other, xs[0], data) is not entries[0]
-    assert [entries[0].run(x, tw, data) for _ in range(backend.WARMUP)] \
-        == [None] * backend.WARMUP
-
-
-def test_a_capture_that_raises_leaves_its_key_eager(monkeypatch):
-    """The capture's error is swallowed and counted once; the key then runs
-    eagerly for good."""
-    monkeypatch.setattr(backend, "_GRAPHS", type(backend._GRAPHS)())
-
-    def broken(graph, fn, pool=None):
-        raise RuntimeError("capture refused")
-    monkeypatch.setattr(backend, "_capture", broken)
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: None)
-    args, kw, x, tw, data = _problem("Ball")
-    entry = backend._graphs_for(_split(args, kw), x, data)
-    before = backend.GRAPH_FAILURES
-    got = [entry.run(x, tw, data) for _ in range(backend.WARMUP + 3)]
-    assert got == [None] * len(got)
-    assert backend.GRAPH_FAILURES == before + 1 and entry.failed
-    assert entry.g1 is None and entry.g2 is None
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +293,7 @@ def test_replayed_evaluations_equal_the_eager_ones(case, monkeypatch):
     """Warm-up, capture and replays against the one-piece evaluation of
     the same x and warm seeds; one kernel call (on the module attribute, as
     the benchmark's recorder sees it) and one launch an evaluation."""
-    monkeypatch.setattr(backend, "_GRAPHS", type(backend._GRAPHS)())
+    monkeypatch.setattr(backend, "GRAPHS", GraphCache(backend._Graphs))
     args, kw, x, tw, data = _card_problem(case)
     calls = []
     mod, attr, counter = {
@@ -351,15 +307,15 @@ def test_replayed_evaluations_equal_the_eager_ones(case, monkeypatch):
     monkeypatch.setattr(mod, attr,
                         lambda *a, **k: calls.append(1) or fn(*a, **k))
     cg = backend.make_cost_fn(*args, **kw)
-    n = backend.WARMUP + 4
+    n = graphs.WARMUP + 4
     launches = getattr(mod, counter)
-    before = dict(backend.GRAPH_EVALS)
+    before = dict(backend.GRAPHS.evals)
     got = _evals(cg, x, tw, n)
     torch.cuda.synchronize()
     assert len(calls) == n and getattr(mod, counter) == launches + n
-    assert {k: backend.GRAPH_EVALS[k] - before[k] for k in before} == {
-        "eager": backend.WARMUP, "capture": 1, "replay": n - 1 -
-        backend.WARMUP}
+    assert {k: backend.GRAPHS.evals[k] - before[k] for k in before} == {
+        "eager": graphs.WARMUP, "capture": 1, "replay": n - 1 -
+        graphs.WARMUP}
     for i, (f, g, t, tw_i) in enumerate(got):
         # a batch's key runs under cuSOLVER's library, warm-ups too
         lib = "cusolver" if x.dim() == 2 else None
@@ -379,17 +335,17 @@ def test_a_cached_key_takes_a_new_problem(case, monkeypatch):
     """A second solve's points, mask, boundary states and warm seeds reach
     the captured graphs: its answers are its eager ones, and an earlier
     answer is untouched by later evaluations."""
-    monkeypatch.setattr(backend, "_GRAPHS", type(backend._GRAPHS)())
+    monkeypatch.setattr(backend, "GRAPHS", GraphCache(backend._Graphs))
     args, kw, x, tw, _ = _card_problem(case, seed=0)
     first = _evals(backend.make_cost_fn(*args, **kw), x, tw,
-                   backend.WARMUP + 2)
+                   graphs.WARMUP + 2)
     kept = [tuple(a.clone() for a in r[:3]) for r in first]
     args2, kw2, x2, tw2, _ = _card_problem(case, seed=3)
     args2 = (args[0],) + args2[1:]           # the same shape: the same key
-    before = dict(backend.GRAPH_EVALS)
+    before = dict(backend.GRAPHS.evals)
     cg2 = backend.make_cost_fn(*args2, **kw2)
     second = _evals(cg2, x2, tw2, 3)
-    assert backend.GRAPH_EVALS["replay"] - before["replay"] == 3
+    assert backend.GRAPHS.evals["replay"] - before["replay"] == 3
     for i, (f, g, t, tw_i) in enumerate(second):
         fe, ge, te, _ = _one_piece(args2, kw2, _x(x2, i), tw_i,
                                    "cusolver" if x2.dim() == 2 else None)
@@ -406,56 +362,25 @@ def test_a_batch_key_replays_its_warm_ups_bit_for_bit(case, monkeypatch):
     """A key's first solve (eager warm-ups, then the capture) and a later
     solve of the same problem (all replays) give the same bits, as the
     dp dryrun's check that a solve does not depend on placement needs."""
-    monkeypatch.setattr(backend, "_GRAPHS", type(backend._GRAPHS)())
+    monkeypatch.setattr(backend, "GRAPHS", GraphCache(backend._Graphs))
     args, kw, x, tw, _ = _card_problem(case)
-    n = backend.WARMUP + 2
+    n = graphs.WARMUP + 2
     first = _evals(backend.make_cost_fn(*args, **kw), x, tw, n)
-    before = backend.GRAPH_EVALS["replay"]
+    before = backend.GRAPHS.evals["replay"]
     again = _evals(backend.make_cost_fn(*args, **kw), x, tw, n)
-    assert backend.GRAPH_EVALS["replay"] - before == n
+    assert backend.GRAPHS.evals["replay"] - before == n
     for a, b in zip(first, again):
         for u, v in zip(a, b):
             assert torch.equal(u, v)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("how", ["python", "cuda_sync"])
-def test_a_failed_capture_falls_back_to_eager(how, monkeypatch):
-    """A capture that raises, in Python or in CUDA (a synchronisation
-    while capturing), leaves its key eager with the one-piece answers."""
-    monkeypatch.setattr(backend, "_GRAPHS", type(backend._GRAPHS)())
-    args, kw, x, tw, _ = _card_problem("K3-demo6")
-    real = backend.integral_penalty
-
-    def penalty(*a, **k):
-        if torch.cuda.is_current_stream_capturing():
-            if how == "python":
-                raise RuntimeError("refused while capturing")
-            torch.cuda.synchronize()
-        return real(*a, **k)
-    monkeypatch.setattr(backend, "integral_penalty", penalty)
-    before, fails = dict(backend.GRAPH_EVALS), backend.GRAPH_FAILURES
-    got = _evals(backend.make_cost_fn(*args, **kw), x, tw,
-                 backend.WARMUP + 3)
-    assert backend.GRAPH_FAILURES == fails + 1
-    assert backend.GRAPH_EVALS["eager"] - before["eager"] == len(got)
-    assert torch.cuda.current_stream() == torch.cuda.default_stream()
-    assert torch.backends.cuda.preferred_linalg_library() == \
-        torch._C._LinalgBackend.Default
-    torch.randn(3, device="cuda")      # the generators left capture mode
-    monkeypatch.setattr(backend, "integral_penalty", real)
-    for i, (f, g, t, tw_i) in enumerate(got):
-        fe, ge, te, _ = _one_piece(args, kw, _x(x, i), tw_i)
-        assert torch.equal(f, fe) and torch.equal(g, ge)
-
-
-@pytest.mark.cuda
 def test_the_non_fused_sweep_stays_eager_on_the_card(monkeypatch):
-    monkeypatch.setattr(backend, "_GRAPHS", type(backend._GRAPHS)())
+    monkeypatch.setattr(backend, "GRAPHS", GraphCache(backend._Graphs))
     args, kw, x, tw, _ = _card_problem("K1-demo1")
     kw = dict(kw, coarse_n=60)
-    before = dict(backend.GRAPH_EVALS)
-    _evals(backend.make_cost_fn(*args, **kw), x, tw, backend.WARMUP + 2)
-    assert backend.GRAPH_EVALS["eager"] - before["eager"] == \
-        backend.WARMUP + 2
-    assert not backend._GRAPHS
+    before = dict(backend.GRAPHS.evals)
+    _evals(backend.make_cost_fn(*args, **kw), x, tw, graphs.WARMUP + 2)
+    assert backend.GRAPHS.evals["eager"] - before["eager"] == \
+        graphs.WARMUP + 2
+    assert not backend.GRAPHS.entries

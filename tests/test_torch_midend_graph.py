@@ -1,14 +1,14 @@
 """The mid end's evaluation as a function of tensors only
-(``midend.MidCost``) and the CUDA graph that replays it (``midend._Graph``).
+(``midend.MidCost``) and the CUDA graph that replays it (``midend._Graph``,
+kept in ``midend.GRAPHS``; its lifecycle is ``tests/test_torch_graphs.py``'s).
 
 On the CPU: the tensor-only evaluation gives the eager evaluation's f and g
 bit for bit, with and without the attitude term, under ``FlatParams`` and
 ``PlanarPose``; every CPU evaluation runs eagerly, marked so on its
-``mid_end.eval`` span and in ``GRAPH_EVALS``, and makes no capture; the
-keys, the graph cache's LRU and the fall-back of a key whose capture
-raises.  On the card (``cuda``): replays against eager warm-ups, a whole
-solve with graphs against one without, a cached key taking a new problem,
-and a forced capture failure."""
+``mid_end.eval`` span and in ``GRAPHS.evals``, and makes no capture; the
+keys.  On the card (``cuda``): replays against eager warm-ups, a whole
+solve with graphs against one without, a cached key taking a new
+problem."""
 
 import numpy as np
 import pytest
@@ -18,8 +18,9 @@ from isdf_torch.config import Config
 from isdf_torch.core import flatness as fl
 from isdf_torch.core import minco, timemap
 from isdf_torch.core.poly import beta
-from isdf_torch.opt import backend, midend
+from isdf_torch.opt import backend, graphs, midend
 from isdf_torch.opt.attitude import attitude_penalty, pad_attitude_refs
+from isdf_torch.opt.graphs import GraphCache
 from isdf_torch.utils import obs
 
 F64 = torch.float64
@@ -128,14 +129,14 @@ def test_tensor_only_evaluation_equals_the_eager_one(pose, att):
 
 
 def _count(fn):
-    before = dict(midend.GRAPH_EVALS)
-    keys = len(midend._GRAPHS)
+    before = dict(midend.GRAPHS.evals)
+    keys = len(midend.GRAPHS.entries)
     obs.clear()
     with obs.tracing():
         out = fn()
     evals = [s for s in obs.spans() if s.name == "mid_end.eval"]
-    moved = {k: midend.GRAPH_EVALS[k] - before[k] for k in before}
-    return out, evals, moved, len(midend._GRAPHS) - keys
+    moved = {k: midend.GRAPHS.evals[k] - before[k] for k in before}
+    return out, evals, moved, len(midend.GRAPHS.entries) - keys
 
 
 @pytest.mark.parametrize("how", ["evaluations", "solve"])
@@ -146,15 +147,15 @@ def test_cpu_evaluations_run_eagerly(how):
     if how == "evaluations":
         (cg, _), x, _ = _cost_fn()
         _, evals, moved, keys = _count(
-            lambda: [cg(x + 0.01 * i, None) for i in range(midend.WARMUP
+            lambda: [cg(x + 0.01 * i, None) for i in range(graphs.WARMUP
                                                           + 3)])
-        assert len(evals) == midend.WARMUP + 3
+        assert len(evals) == graphs.WARMUP + 3
     else:
         head, tail, wps, T0, rots = _problem(N=4)
         (_, _, res), evals, moved, keys = _count(
             lambda: midend.get_ori_traj(Config(**CONF), head, tail, wps, T0,
                                         rot_refs=rots, max_iters=6))
-        assert len(evals) == res.n_evals > midend.WARMUP
+        assert len(evals) == res.n_evals > graphs.WARMUP
     assert moved == {"replay": 0, "capture": 0, "eager": len(evals)}
     assert keys == 0
     assert all(s.attrs["graph"] == "eager" for s in evals)
@@ -202,46 +203,6 @@ def test_keys_differ_where_the_work_does(change):
         assert _key(**KEY_CHANGES[change]) != base
 
 
-def test_graph_cache_is_a_small_lru(monkeypatch):
-    """One entry a key, the least recently used first out beyond
-    ``GRAPH_KEYS``; a new key's first ``WARMUP`` evaluations run eagerly;
-    two problems of one key share its entry."""
-    monkeypatch.setattr(midend, "_GRAPHS", type(midend._GRAPHS)())
-
-    def entry(N, seed=0):
-        (_, _), x, (_, _, wps, refs) = _cost_fn(N=N, seed=seed)
-        return midend._graph_for(_mid_cost(N), x, wps, refs)
-
-    entries = [entry(n) for n in range(2, 2 + midend.GRAPH_KEYS)]
-    assert len(midend._GRAPHS) == midend.GRAPH_KEYS
-    assert entry(2) is entries[0] and entry(2, seed=5) is entries[0]
-    entry(2 + midend.GRAPH_KEYS)
-    kept = list(midend._GRAPHS.values())
-    assert len(kept) == midend.GRAPH_KEYS
-    assert entries[0] in kept and entries[1] not in kept
-    (_, _), x, tensors = _cost_fn(N=2)
-    assert [entries[0].run((x,) + tensors) for _ in range(midend.WARMUP)] \
-        == [None] * midend.WARMUP
-
-
-def test_a_capture_that_raises_leaves_its_key_eager(monkeypatch):
-    """The capture's error is swallowed and counted once; the key then runs
-    eagerly for good."""
-    monkeypatch.setattr(midend, "_GRAPHS", type(midend._GRAPHS)())
-
-    def broken(graph, fn, pool=None):
-        raise RuntimeError("capture refused")
-    monkeypatch.setattr(midend, "_capture", broken)
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: None)
-    (_, _), x, tensors = _cost_fn()
-    entry = midend._graph_for(_mid_cost(4), x, tensors[2], tensors[3])
-    before = midend.GRAPH_FAILURES
-    got = [entry.run((x,) + tensors) for _ in range(midend.WARMUP + 3)]
-    assert got == [None] * len(got)
-    assert midend.GRAPH_FAILURES == before + 1 and entry.failed
-    assert str(entry.error) == "capture refused" and entry.graph is None
-
-
 # ---------------------------------------------------------------------------
 # on the card
 
@@ -271,11 +232,11 @@ def _card_solve(seed, max_iters=40):
 def _eager_solve(seed, monkeypatch):
     """The solve with the graphs off: every key stays in its warm-ups."""
     with monkeypatch.context() as m:
-        m.setattr(midend, "_GRAPHS", type(midend._GRAPHS)())
-        m.setattr(midend, "WARMUP", 10 ** 9)
-        before = midend.GRAPH_EVALS["eager"]
+        m.setattr(midend, "GRAPHS", GraphCache(midend._Graph))
+        m.setattr(graphs, "WARMUP", 10 ** 9)
+        before = midend.GRAPHS.evals["eager"]
         x, res = _card_solve(seed)
-        assert midend.GRAPH_EVALS["eager"] - before == res.n_evals
+        assert midend.GRAPHS.evals["eager"] - before == res.n_evals
         return x, res
 
 
@@ -285,19 +246,19 @@ def test_replays_equal_the_eager_warm_ups(att, monkeypatch):
     """The warm-ups, the capture and the replays give the eager evaluation's
     f and g of the same x, bit for bit; a replayed answer is not touched by
     later evaluations."""
-    monkeypatch.setattr(midend, "_GRAPHS", type(midend._GRAPHS)())
+    monkeypatch.setattr(midend, "GRAPHS", GraphCache(midend._Graph))
     dev = _card()
     (cg, _), x, tensors = _cost_fn(N=12, att=att, device=dev,
                                    dtype=torch.float32, conf=CARD_CONF)
     cost = _mid_cost(12, conf=CARD_CONF)
-    n = midend.WARMUP + 4
-    before = dict(midend.GRAPH_EVALS)
+    n = graphs.WARMUP + 4
+    before = dict(midend.GRAPHS.evals)
     got = [cg(_x(x, i % 3), None)[:2] for i in range(n)]
     kept = [(f.clone(), g.clone()) for f, g in got]
     torch.cuda.synchronize()
-    assert {k: midend.GRAPH_EVALS[k] - before[k] for k in before} == {
-        "eager": midend.WARMUP, "capture": 1,
-        "replay": n - 1 - midend.WARMUP}
+    assert {k: midend.GRAPHS.evals[k] - before[k] for k in before} == {
+        "eager": graphs.WARMUP, "capture": 1,
+        "replay": n - 1 - graphs.WARMUP}
     for i, ((f, g), (fk, gk)) in enumerate(zip(got, kept)):
         fe, ge = cost.value_and_grad(_x(x, i % 3), *tensors)
         assert torch.equal(f, fe) and torch.equal(g, ge), i
@@ -310,13 +271,13 @@ def test_replays_equal_the_eager_warm_ups(att, monkeypatch):
 def test_a_solve_with_graphs_equals_one_without(monkeypatch):
     """A whole mid-end solve through the graph ends at the eager solve's x,
     bit for bit, after the same iterations and evaluations."""
-    monkeypatch.setattr(midend, "_GRAPHS", type(midend._GRAPHS)())
+    monkeypatch.setattr(midend, "GRAPHS", GraphCache(midend._Graph))
     xe, re = _eager_solve(0, monkeypatch)
-    before = dict(midend.GRAPH_EVALS)
+    before = dict(midend.GRAPHS.evals)
     xg, rg = _card_solve(0)
-    moved = {k: midend.GRAPH_EVALS[k] - before[k] for k in before}
+    moved = {k: midend.GRAPHS.evals[k] - before[k] for k in before}
     assert moved["capture"] == 1 and moved["replay"] == rg.n_evals - 1 \
-        - midend.WARMUP
+        - graphs.WARMUP
     assert (rg.n_iters, rg.n_evals) == (re.n_iters, re.n_evals)
     assert torch.equal(xg, xe) and torch.equal(rg.f, re.f)
 
@@ -326,48 +287,14 @@ def test_a_cached_key_takes_a_new_problem(monkeypatch):
     """Two solves in a row with other boundary states, waypoints and
     attitude references and the same N: the second replays the first's
     graph from its first evaluation and ends at its own eager answer."""
-    monkeypatch.setattr(midend, "_GRAPHS", type(midend._GRAPHS)())
+    monkeypatch.setattr(midend, "GRAPHS", GraphCache(midend._Graph))
     x1, _ = _card_solve(0)
-    before = dict(midend.GRAPH_EVALS)
+    before = dict(midend.GRAPHS.evals)
     x2, r2 = _card_solve(7)
-    assert len(midend._GRAPHS) == 1
-    assert {k: midend.GRAPH_EVALS[k] - before[k] for k in before} == {
+    assert len(midend.GRAPHS.entries) == 1
+    assert {k: midend.GRAPHS.evals[k] - before[k] for k in before} == {
         "eager": 0, "capture": 0, "replay": r2.n_evals}
     xe1, _ = _eager_solve(0, monkeypatch)
     xe2, _ = _eager_solve(7, monkeypatch)
     assert torch.equal(x1, xe1) and torch.equal(x2, xe2)
     assert not torch.equal(x1, x2)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("how", ["python", "cuda_sync"])
-def test_a_failed_capture_falls_back_to_eager(how, monkeypatch):
-    """A capture that raises, in Python or in CUDA (a synchronisation
-    while capturing), leaves its key eager with the eager answers, counts
-    one failure, and a later random draw on the card still works."""
-    monkeypatch.setattr(midend, "_GRAPHS", type(midend._GRAPHS)())
-    dev = _card()
-    real = midend.attitude_penalty
-
-    def penalty(*a, **k):
-        if torch.cuda.is_current_stream_capturing():
-            if how == "python":
-                raise RuntimeError("refused while capturing")
-            torch.cuda.synchronize()
-        return real(*a, **k)
-    monkeypatch.setattr(midend, "attitude_penalty", penalty)
-    (cg, _), x, tensors = _cost_fn(N=12, device=dev, dtype=torch.float32,
-                                   conf=CARD_CONF)
-    before, fails = dict(midend.GRAPH_EVALS), midend.GRAPH_FAILURES
-    n = midend.WARMUP + 3
-    got = [cg(_x(x, i), None)[:2] for i in range(n)]
-    assert midend.GRAPH_FAILURES == fails + 1
-    assert midend.GRAPH_EVALS["eager"] - before["eager"] == n
-    assert next(iter(midend._GRAPHS.values())).failed
-    assert torch.cuda.current_stream() == torch.cuda.default_stream()
-    torch.randn(3, device=dev)      # the generators left capture mode
-    monkeypatch.setattr(midend, "attitude_penalty", real)
-    cost = _mid_cost(12, conf=CARD_CONF)
-    for i, (f, g) in enumerate(got):
-        fe, ge = cost.value_and_grad(_x(x, i), *tensors)
-        assert torch.equal(f, fe) and torch.equal(g, ge)
