@@ -49,7 +49,9 @@ Phases (any failure exits non-zero):
                printed as cold_wall_s: phase 19's bench takes the median of
                three after a warm call); the launch
                counters are set to 0 just before the B = 128 solve and read
-               just after;
+               just after; scenarios 0–3 of the B = 128 batch solved again
+               beside 124 new neighbours, bitwise, and evaluated alone
+               (B = 4), their first cost and gradient within 1e-4;
   4b. multi-device — parallel/mesh.py: in this process a world-1 NCCL
                group and a (1, 1) mesh, shard_batch and the B = 4096 solve,
                bitwise equal to phase 4's; then two spawned ranks sharing the
@@ -147,6 +149,16 @@ Phases (any failure exits non-zero):
                scenario finite, each section's kernel launched) and printed
                on a `bench: {...}` line; its launches per section go into
                the kernels line.
+ 20. K5      — after phase 18: the trajectory's state at t*
+               (sweep/pieces.pvaj_at) at every shape phases 3, 4, 5 and 6
+               called it at, their K5 counters set to 0 just before each plan
+               or solve and read just after (a replay of a back-end graph
+               counted as one launch each way; K5 must launch forward with
+               every K1/K2 launch of a tilt or planar plan or solve and with
+               every back-end evaluation of the mesh plan, backward in every
+               back-end evaluation): the forward bitwise pvaj_tables, the
+               gradients of the durations and coefficients within K5_BAND of
+               float64 autograd on the same table values, timed.
 Phases 3–7, 9–17 and 19 run before phase 2: a process that has run the kernel
 phase's torch.profiler traces planned and solved more slowly after them
 (PERF.md §6).  With ``--profile`` it then plans once more under torch.profiler,
@@ -495,7 +507,7 @@ BATCH_CONF = dict(integralIntervs=32, sweep_coarse_samples=64,
 BATCH_N, BATCH_P, BATCH_ITERS, BATCH_CHUNK = 4, 512, 24, 8
 AUDIT_COARSE_N = 512    # batched_solve_audited's audit_coarse_n
 COST_RISE = 1e-3    # band of a final cost above its scenario's first cost
-ALONE_RTOL = 1e-4   # band of a scenario solved alone against it in a batch
+ALONE_RTOL = 1e-4   # band of a scenario evaluated alone against it in a batch
 
 
 def batched_kernel_inputs(torch, shape_name, B, dev, seed, coarse_n=None,
@@ -881,7 +893,8 @@ def phase_k3(dev, obj_path):
 
 def phase_plan(dev):
     """PlannerManager.plan on the demo-1 scene → (metrics, K1 launches, the
-    manager, the trajectory, the arguments of its first back-end solve)."""
+    manager, the trajectory, the arguments of its first back-end solve, K5
+    on the plan's path: its recorded calls and launches, ``k5_path``)."""
     import torch
     from isdf_torch.config import Config
     from isdf_torch.opt import backend
@@ -912,12 +925,14 @@ def phase_plan(dev):
         return optimize(*a, **k)
 
     backend.optimize = recording
+    k5_calls, k5 = {}, {}
     fused_zoom.LAUNCHES = 0
     t0 = time.perf_counter()
     try:
-        res = pm.plan(np.asarray(START), np.asarray(GOAL),
-                      max_iters=MAX_ITERS)
-        torch.cuda.synchronize()
+        with k5_path(k5_calls, k5):
+            res = pm.plan(np.asarray(START), np.asarray(GOAL),
+                          max_iters=MAX_ITERS)
+            torch.cuda.synchronize()
     finally:
         backend.optimize = optimize
     plan_s = time.perf_counter() - t0
@@ -951,7 +966,12 @@ def phase_plan(dev):
     print(f"plan: audit min swept SDF = {min_sdf!r}", flush=True)
     print(f"plan: K1 launches in the plan = {launches}", flush=True)
     check(launches > 0, "the plan never launched K1")
-    return m, launches, pm, traj, solves[0]
+    # K5 at every K1 launch's t*, its backward in every back-end evaluation
+    check(k5.get("forward") == launches
+          and k5.get("backward") == m["back_end_evals"],
+          f"plan: K5 launches {k5}, expected {launches} forward and "
+          f"{m['back_end_evals']} backward")
+    return m, launches, pm, traj, solves[0], (k5_calls, k5)
 
 
 def phase_refine(pm, traj) -> int:
@@ -1071,7 +1091,8 @@ def phase_profile(pm, batch_case, pm_mesh, planar, dev) -> None:
 def phase_batch(dev):
     """The scenario-batched back end on the card → (K2 launches of the
     B = 128 solve, the B = 4096 case for ``--profile``, {B: (coeffs, T,
-    costs, iters, K2 launches)} of the last timed solve at each B)."""
+    costs, iters, K2 launches)} of the last timed solve at each B, {B: K5's
+    recorded calls and launches in that solve}, ``k5_path``)."""
     import torch
     from isdf_torch.config import Config
     from isdf_torch.parallel import batch as pb
@@ -1082,7 +1103,7 @@ def phase_batch(dev):
     shape = make_shape("CappedCone", conf)
     trips = 2 * BATCH_CHUNK + 8          # loop trips per chunk, 2 evals each
     launches_main, big_case, small = None, None, None
-    solved = {}
+    solved, k5_paths = {}, {}
 
     def solve(sb, **kw):
         chunks = [1]
@@ -1102,11 +1123,14 @@ def phase_batch(dev):
         f0, g0 = pb.batched_cost_and_grad(shape, conf, sb)
         # one solve, timed cold (the first at this B): the bench (phase 19)
         # times three after a warm call at every B
+        k5_calls, k5 = {}, {}
         fused_zoom.LAUNCHES_BATCHED = 0
         t0 = time.perf_counter()
-        (coeffs, T, costs, iters), n_chunks = solve(sb)
+        with k5_path(k5_calls, k5):
+            (coeffs, T, costs, iters), n_chunks = solve(sb)
         wall = time.perf_counter() - t0
         launches = fused_zoom.LAUNCHES_BATCHED
+        k5_paths[B] = (k5_calls, k5)
         what = f"batch B={B}"
         check(tuple(coeffs.shape) == (B, BATCH_N, 6, 3)
               and tuple(T.shape) == (B, BATCH_N),
@@ -1137,6 +1161,9 @@ def phase_batch(dev):
         expect = 1 + 2 * trips * n_chunks
         check(launches == expect, f"{what}: {launches} K2 launches, the "
                                   f"lockstep schedule implies {expect}")
+        # K5 once each way in every evaluation
+        check(k5.get("forward") == launches and k5.get("backward") == launches,
+              f"{what}: K5 launches {k5}, expected {launches} each way")
         rec = dict(B=B, N=BATCH_N, P=BATCH_P, max_iters=BATCH_ITERS,
                    chunk=BATCH_CHUNK, chunks=n_chunks,
                    loop_trips=trips * n_chunks, k2_launches=launches,
@@ -1150,25 +1177,62 @@ def phase_batch(dev):
         print("batch " + json.dumps(rec), flush=True)
         solved[B] = (coeffs, T, costs, iters, launches)
         if B == 128:
-            launches_main, small = launches, (sb, costs)
+            launches_main, small = launches, (sb, costs, f0, g0)
         else:
             big_case = (shape, conf, sb)
 
-    # a scenario's result does not depend on its neighbours: scenarios 0–3
-    # of the B = 128 batch solved alone as a B = 4 batch.  Not bitwise: the
-    # library's reductions and batched LU round differently at another
-    # batch size.  The band is 1e-4 of the cost (measured: ≤ 7.6e-7 on an
-    # H100 at 700 W), tight enough that a scenario reading a neighbour's
-    # pose table or durations would leave it.
-    sb, costs = small
+    # a scenario's result does not depend on its neighbours.  Scenarios 0–3
+    # of the B = 128 batch solved again in a B = 128 batch whose other 124
+    # scenarios are drawn anew: their first evaluation and their solve (final
+    # costs, coefficients, durations, accepted steps) the same bits, which a
+    # scenario reading a neighbour's pose table or durations would leave.
+    sb, costs, f0, g0 = small
+    other = pb.make_random_batch(conf, 128, N=BATCH_N, n_points=BATCH_P,
+                                 seed=7)
+
+    def keep4(a, b):
+        b = b.clone()
+        b[:4] = a[:4]
+        return b
+
+    sbm = pb.ScenarioBatch(*(keep4(getattr(sb, f), getattr(other, f))
+                             for f in ("head", "tail", "q0", "T0", "points",
+                                       "mask")))
+    fm, gm = pb.batched_cost_and_grad(shape, conf, sbm)
+    (coeffs_m, T_m, costs_m, iters_m), _ = solve(sbm)
+    coeffs, T, _, iters, _ = solved[128]
+    same = dict(first_cost=torch.equal(fm[:4], f0[:4]),
+                first_grad=torch.equal(gm[:4], g0[:4]),
+                final_cost=torch.equal(costs_m[:4], costs[:4]),
+                coeffs=torch.equal(coeffs_m[:4], coeffs[:4]),
+                T=torch.equal(T_m[:4], T[:4]),
+                accepted_steps=torch.equal(iters_m[:4], iters[:4]))
+    # Solved alone (a B = 4 batch) they are not bitwise: the library's
+    # reductions round differently at another batch size (the first cost
+    # differs in its last bit, the gradient the same bits), and the lockstep
+    # L-BFGS can carry a last-bit difference into another line-search step
+    # or t* (measured on an H100, scenarios 0–31 each solved alone: 16 of 32
+    # end 6e-8 to 0.16 of their cost away from the batch's in float32, 1 of
+    # 32 at 0.033 in float64, while in a B = 128 batch with new neighbours
+    # all 32 stay bitwise through all 145 evaluations in both).  So the
+    # B = 4 batch holds the first evaluation within ALONE_RTOL and prints
+    # the solves' final costs.
     sb4 = sb.map(lambda t: t[:4])
+    f4, g4 = pb.batched_cost_and_grad(shape, conf, sb4)
+    rel_f = ((f4 - f0[:4]).abs() / f0[:4].abs()).tolist()
+    rel_g = ((g4 - g0[:4]).abs().amax(-1) / g0[:4].abs().amax(-1)).tolist()
     (_, _, costs4, _), _ = solve(sb4)
     rel = ((costs4 - costs[:4]).abs() / costs[:4].abs()).tolist()
-    print("batch B=4 against scenarios 0-3 of B=128: costs "
-          + json.dumps(dict(alone=costs4.tolist(), in_batch=costs[:4].tolist(),
-                            rel_diff=rel)), flush=True)
-    check(max(rel) <= ALONE_RTOL, f"batch: scenarios solved alone differ "
-                                  f"by {max(rel):.3g} of their cost")
+    print("batch scenarios 0-3 of B=128: " + json.dumps(dict(
+        bitwise_beside_new_neighbours=same, alone_first_cost_rel_diff=rel_f,
+        alone_first_grad_rel_diff=rel_g, alone_final=costs4.tolist(),
+        in_batch_final=costs[:4].tolist(), alone_final_rel_diff=rel)),
+        flush=True)
+    check(all(same.values()),
+          f"batch: scenarios 0-3 beside new neighbours differ: {same}")
+    check(max(rel_f + rel_g) <= ALONE_RTOL,
+          f"batch: scenarios evaluated alone differ by "
+          f"{max(rel_f + rel_g):.3g} of their first cost or gradient")
 
     sba = pb.make_random_batch(conf, 128, N=BATCH_N, n_points=BATCH_P, seed=3)
     fused_zoom.LAUNCHES_BATCHED = 0
@@ -1192,7 +1256,7 @@ def phase_batch(dev):
         scenarios_clear=int((audit["min_sdf"] > 1e-3).sum()))), flush=True)
     check(fused_zoom.LAUNCHES_BATCHED > 0, "the audited solve never "
                                            "launched K2")
-    return launches_main, big_case, solved
+    return launches_main, big_case, solved, k5_paths
 
 
 # the multi-device phase (4b): two ranks share the one card; their chunked
@@ -1276,6 +1340,165 @@ def _kernel_case_ok(c) -> bool:
     return (c["t_equal"] and c["d_equal"]
             and (c["g_equal"] if c["kernel"] == "K3"
                  else c["max_abs_grad"] <= G_ATOL))
+
+
+# K5's float32 gradients against float64 autograd, as a share of each
+# gradient tensor's largest entry: the band of tests/test_torch_pieces.py
+K5_BAND = 5e-6
+
+
+@contextlib.contextmanager
+def k5_path(calls: dict, counts: dict):
+    """Within the block, K5 on a path: its counters set to 0, and the first
+    call of ``pieces.pvaj_at`` at each shape outside a graph's capture
+    recorded in ``calls`` (the durations, coefficients and times, copied).
+    On leaving, ``counts`` gets K5's launches on the card: ``forward`` and
+    ``backward``, the counters' eager and captured launches, plus one of each
+    for every replay of a back-end graph in the block (a capture runs its
+    graph once, which its counted launch stands for); every graph of the
+    back end must hold K5."""
+    import torch
+    from isdf_torch.opt import backend
+    from isdf_torch.sweep import pieces
+
+    real = pieces.pvaj_at
+
+    def spy(traj, t):
+        key = (tuple(traj.durations.shape), tuple(t.shape))
+        if key not in calls and not torch.cuda.is_current_stream_capturing():
+            calls[key] = tuple(a.detach().clone() for a in
+                               (traj.durations, traj.coeffs, t))
+        return real(traj, t)
+
+    pieces.pvaj_at = spy
+    pieces.LAUNCHES = pieces.LAUNCHES_BACKWARD = 0
+    replays = backend.GRAPHS.evals["replay"]
+    try:
+        yield
+    finally:
+        pieces.pvaj_at = real
+    replays = backend.GRAPHS.evals["replay"] - replays
+    held = [e.graphs.pieces for e in backend.GRAPHS.entries.values()
+            if e.graphs is not None]
+    check(all(held), f"K5: {held.count(False)} back-end graphs hold no K5")
+    counts.update(forward=pieces.LAUNCHES + replays,
+                  backward=pieces.LAUNCHES_BACKWARD + replays,
+                  counted=(pieces.LAUNCHES, pieces.LAUNCHES_BACKWARD),
+                  replays=replays)
+
+
+def hold_k5(label, durs, coeffs, t) -> dict:
+    """K5 on one recorded call of its path → its record: the forward bitwise
+    ``fast_eval.pvaj_tables`` on the same tables; the gradients of the
+    durations and coefficients (the path's backward: t* is a constant)
+    within K5_BAND of float64 autograd through pvaj_tables on the same
+    table values; the three kernels' device time a call (the sum of each
+    kernel's median in torch.profiler's trace), the call's and the plain
+    version's with CUDA events; the bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from isdf_torch.core.poly import PolyTraj
+    from isdf_torch.sweep import pieces
+    from isdf_torch.sweep.fast_eval import piece_tables, pvaj_tables
+    from isdf_torch.utils.flops import k5_bound_ms
+
+    what = f"K5 {label}"
+    gen = torch.Generator(device=t.device).manual_seed(5)
+    w = [torch.randn(t.shape, generator=gen, device=t.device, dtype=t.dtype)
+         for _ in range(9)]
+
+    def run(state, d, c):
+        d = d.detach().requires_grad_(True)
+        c = c.detach().requires_grad_(True)
+        out = [x for order in state(d, c) for x in order]
+        f = sum((o * wi.to(o.dtype)).sum() for o, wi in zip(out, w))
+        return out, torch.autograd.grad(f, (d, c))
+
+    def k5(d, c):
+        return pieces.pvaj_at(PolyTraj(d, c), t)
+
+    def plain(d, c):
+        return pvaj_tables(*piece_tables(PolyTraj(d, c), t.dtype), t, 3)
+
+    def plain64(d, c):
+        # the float32 tables' values, with float64 derivatives
+        s32, _, cum32, _ = piece_tables(PolyTraj(durs, coeffs), t.dtype)
+        cum = torch.cumsum(d, -1)
+        starts = s32.double() + ((cum - d) - (cum - d).detach())
+        return pvaj_tables(starts, d, cum32.double(), c, t.double(), 3)
+
+    out, g = run(k5, durs, coeffs)
+    want, _ = run(plain, durs, coeffs)
+    _, g64 = run(plain64, durs.double(), coeffs.double())
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(out, want))
+    max_d = max(float((a - b).detach().abs().max())
+                for a, b in zip(out, want))
+    errs = [float((a.double() - b).abs().max()
+                  / b.abs().max().clamp_min(1e-30)) for a, b in zip(g, g64)]
+    check_kernel(bitwise, f"{what}: the forward is not pvaj_tables' bits")
+    check_kernel(max(errs) <= K5_BAND,
+                 f"{what}: gradient errors {errs} beyond {K5_BAND}")
+
+    def call():
+        run(k5, durs, coeffs)
+
+    call_ms = cuda_ms(call)
+    kernels = {}                # K5's kernels: [median ms, launches a call]
+    for _ in range(3):          # a trace can come back without the card's
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.profiler.kineto_results.events():
+            if (e.device_type() == torch.autograd.DeviceType.CUDA
+                    and "pieces_" in e.name()):
+                by.setdefault(e.name().split("<")[0].split()[-1], []).append(
+                    (e.end_ns() - e.start_ns()) * 1e-6)
+        if by:
+            kernels = {k: [statistics.median(v), len(v) / 10]
+                       for k, v in sorted(by.items())}
+            break
+    check_kernel(len(kernels) == 3,
+                 f"{what}: torch.profiler recorded K5's kernels {kernels}")
+    dev_ms = sum(v[0] for v in kernels.values()) if kernels else None
+    plain_ms = cuda_ms(lambda: run(plain, durs, coeffs), warmup=1, reps=3)
+    B = 1 if durs.dim() == 1 else durs.shape[0]
+    M, N = t.numel() // B, durs.shape[-1]
+    bound, bound_by, ops, nbytes = k5_bound_ms(B, M, N, t.element_size())
+    rec = dict(case=label, B=B, M=M, N=N, dtype=str(t.dtype).split(".")[-1],
+               forward_bitwise=bitwise, max_abs_d=max_d,
+               grad_rel_err=dict(durations=errs[0], coeffs=errs[1]),
+               ms=dev_ms, kernels=kernels, call_ms=call_ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, ops=ops,
+               bytes=nbytes)
+    print("K5 vs plain " + json.dumps(rec), flush=True)
+    return rec
+
+
+def hold_k5_path(label, calls: dict, counts: dict) -> dict:
+    """Every shape ``k5_path`` recorded on a path held (:func:`hold_k5`) →
+    the path's record: its launches and the record of its largest call."""
+    recs = [hold_k5(f"{label} t{tuple(t.shape)} N={d.shape[-1]}", d, c, t)
+            for d, c, t in calls.values()]
+    check(bool(recs), f"K5 {label}: pvaj_at was never called")
+    big = max(recs, key=lambda r: r["B"] * r["M"])
+    print(f"K5 {label}: launches " + json.dumps(counts), flush=True)
+    return dict(counts, rec=big, cases=len(recs),
+                max_abs_d=max(r["max_abs_d"] for r in recs))
+
+
+def phase_k5(plan_k5, mesh_k5, batch_k5, planar) -> dict:
+    """After phase 2: K5 at every shape its paths called it at (phases 3,
+    4, 5 and 6, ``k5_path``), each held and timed (:func:`hold_k5`) →
+    {path: its launches and its largest call's record}."""
+    paths = {"PlannerManager.plan demo 1": plan_k5,
+             "PlannerManager.plan demo 6": mesh_k5,
+             **{f"batched_solve_chunked B = {B}": v
+                for B, v in batch_k5.items()},
+             **{f"plan_planar {k}": v["k5"] for k, v in planar.items()}}
+    return {label: hold_k5_path(label, *v) for label, v in paths.items()}
 
 
 def multidevice_rank(rank, sp, obj_path, outdir):
@@ -1596,8 +1819,9 @@ def phase_multidevice(solved, obj_path) -> dict:
 
 def phase_mesh_plan(dev, obj_path):
     """PlannerManager.plan on the demo-6 scene with the L robot → (metrics,
-    K3 launches, the manager).  K3 must launch once per back-end cost
-    evaluation and once per audit sweep."""
+    K3 launches, the manager, the trajectory, K5 on the plan's path).  K3
+    must launch once per back-end cost evaluation and once per audit sweep,
+    K5 once each way per back-end evaluation."""
     import torch
     from isdf_torch.config import Config
     from isdf_torch.plan import PlannerManager
@@ -1621,10 +1845,13 @@ def phase_mesh_plan(dev, obj_path):
           f"kernels {tuple(pm.pose_kernels.kernels.shape)}, set-up "
           f"{setup_s:.2f} s; back-end max_iters cap {MAX_ITERS}", flush=True)
 
+    k5_calls, k5 = {}, {}
     grid_zoom.LAUNCHES_GRID = 0
     t0 = time.perf_counter()
-    res = pm.plan(np.asarray(START6), np.asarray(GOAL6), max_iters=MAX_ITERS)
-    torch.cuda.synchronize()
+    with k5_path(k5_calls, k5):
+        res = pm.plan(np.asarray(START6), np.asarray(GOAL6),
+                      max_iters=MAX_ITERS)
+        torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     launches = grid_zoom.LAUNCHES_GRID
 
@@ -1666,7 +1893,13 @@ def phase_mesh_plan(dev, obj_path):
           f"mesh plan: {launches} K3 launches, expected "
           f"{m['back_end_evals']} + {audits}")
     check(math.isfinite(min_sdf), "mesh plan: non-finite audit SDF")
-    return m, launches, pm, traj
+    # K5 in every back-end evaluation (an audit's value at t* under a baked
+    # field reads the plain pvaj_tables)
+    check(k5.get("forward") == m["back_end_evals"]
+          and k5.get("backward") == m["back_end_evals"],
+          f"mesh plan: K5 launches {k5}, expected {m['back_end_evals']} "
+          "each way")
+    return m, launches, pm, traj, (k5_calls, k5)
 
 
 def phase_mesh_batch(dev, shape):
@@ -1750,10 +1983,12 @@ FLY_RUN = dict(replan_dt=1.5, max_time=30.0, max_iters=12, goal_tol=1.0)
 
 
 def phase_planar(dev):
-    """plan_planar on demos 7 and 8, K1's counter set to 0 just before each
-    plan and read just after; K1 must launch once per back-end evaluation
-    and once for the plan's final sweep → {label: record with the shape,
-    the trajectory and the map's points}."""
+    """plan_planar on demos 7 and 8, K1's and K5's counters set to 0 just
+    before each plan and read just after; K1 must launch once per back-end
+    evaluation and once for the plan's final sweep, K5 forward with each K1
+    launch and backward once per back-end evaluation → {label: record with
+    the shape, the trajectory, the map's points and K5's recorded calls and
+    launches, ``k5_path``}."""
     import torch
     from isdf_torch.config import Config
     from isdf_torch.plan import audit_planar, plan_planar
@@ -1766,11 +2001,13 @@ def phase_planar(dev):
         conf = Config(**d)
         shape = make_shape(shape_name, conf)
         pts2 = getattr(maps_gen, map_name)()
+        k5_calls, k5 = {}, {}
         fused_zoom.LAUNCHES = 0
         t0 = time.perf_counter()
-        res = plan_planar(conf, shape, pts2, start, goal, yaw_opt=yaw_opt,
-                          device=dev)
-        torch.cuda.synchronize()
+        with k5_path(k5_calls, k5):
+            res = plan_planar(conf, shape, pts2, start, goal,
+                              yaw_opt=yaw_opt, device=dev)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = fused_zoom.LAUNCHES
         m = res.metrics
@@ -1807,8 +2044,14 @@ def phase_planar(dev):
         check(launches == m["back_end_evals"] + 1,
               f"{label}: {launches} K1 launches, expected "
               f"{m['back_end_evals']} + 1")
+        # K5 at every K1 launch's t*, its backward in every back-end
+        # evaluation
+        check(k5.get("forward") == launches
+              and k5.get("backward") == m["back_end_evals"],
+              f"{label}: K5 launches {k5}, expected {launches} forward and "
+              f"{m['back_end_evals']} backward")
         out[label] = dict(rec, shape_obj=shape, traj=traj.detach(),
-                          pts2=pts2, params_conf=conf)
+                          pts2=pts2, params_conf=conf, k5=(k5_calls, k5))
     return out
 
 
@@ -3065,6 +3308,35 @@ def bench_lines(bench_rec, k1_recs, k2_recs, k3_recs) -> list:
     return lines
 
 
+def k5_lines(k5_paths) -> list:
+    """K5's entries of the kernels line: under the tilt map with the demo-6
+    plan's call (P = 4096) and with the B = 4096 solve's as its case, under
+    the planar map with demo 8's; ``launches`` the forward's on the card,
+    ``launches_backward`` the backward's, each path's from its counters."""
+    replaces = ("none: isdf_tpu/sweep/fast_eval.py sums every piece under "
+                "masks")
+    lines = []
+    for pose, main_path, case_path in (
+            ("flat", "PlannerManager.plan demo 6",
+             "batched_solve_chunked B = 4096"),
+            ("planar", "plan_planar demo8", None)):
+        paths = {k: v for k, v in k5_paths.items()
+                 if k.startswith("plan_planar") == (pose == "planar")}
+        for path, case in ((main_path, None), (case_path, "batch B = 4096")):
+            if path is None:
+                continue
+            line = kernel_line(
+                "pvaj_at", replaces, sum(v["forward"] for v in paths.values()),
+                max(v["max_abs_d"] for v in paths.values()),
+                k5_paths[path]["rec"], pose,
+                {k: v["forward"] for k, v in paths.items()},
+                source="isdf_torch/csrc/pieces.cu", case=case)
+            line["launches_backward"] = sum(v["backward"]
+                                            for v in paths.values())
+            lines.append(line)
+    return lines
+
+
 def main() -> int:
     try:
         import torch
@@ -3075,7 +3347,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from isdf_torch.sweep import fused_zoom, grid_zoom
+        from isdf_torch.sweep import fused_zoom, grid_zoom, pieces
     except ImportError as e:
         print(f"chip_smoke: isdf_torch not importable ({e}); run from the "
               "root of the repository", file=sys.stderr)
@@ -3085,10 +3357,11 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         libs = fused_zoom.compile_jobs(fused_zoom.build_jobs()
-                                       + grid_zoom.build_jobs())
+                                       + grid_zoom.build_jobs()
+                                       + pieces.build_jobs())
         PHASE_S["build"] = time.perf_counter() - t0
-        print(f"build: K1, K2 and K4 for {len(libs) - 1} body-SDF kinds, "
-              f"and K3 ({len(libs)} libraries, built in parallel) in "
+        print(f"build: K1, K2 and K4 for {len(libs) - 2} body-SDF kinds, "
+              f"K3 and K5 ({len(libs)} libraries, built in parallel) in "
               f"{PHASE_S['build']:.2f} s", flush=True)
         # what ptxas reports: [kernel, registers, spill stores, spill loads
         # (bytes), stack frame (bytes)] per library
@@ -3100,11 +3373,13 @@ def main() -> int:
         ref_root = write_reference_root(workdir.name, obj_path)
         os.environ["ISDF_REFERENCE_ROOT"] = ref_root
         # the timed paths first, the kernel phase's profiler traces after
-        plan_m, k1_launches, pm, traj, solve1 = timed_phase(phase_plan, dev)
+        plan_m, k1_launches, pm, traj, solve1, plan_k5 = timed_phase(
+            phase_plan, dev)
         k4_launches = timed_phase(phase_refine, pm, traj)
-        k2_launches, batch_case, batch_solved = timed_phase(phase_batch, dev)
+        k2_launches, batch_case, batch_solved, batch_k5 = timed_phase(
+            phase_batch, dev)
         multi = timed_phase(phase_multidevice, batch_solved, obj_path)
-        _, k3_launches, pm_mesh, traj_mesh = timed_phase(
+        _, k3_launches, pm_mesh, traj_mesh, mesh_k5 = timed_phase(
             phase_mesh_plan, dev, obj_path)
         timed_phase(phase_mesh_batch, dev, pm_mesh.shape)
         planar = timed_phase(phase_planar, dev)
@@ -3127,6 +3402,7 @@ def main() -> int:
         planar_recs = timed_phase(phase_planar_kernels, dev, planar, obj_path)
         volume_recs = timed_phase(
             phase_volume_kernels, dev, pm, traj, pm_mesh, traj_mesh)
+        k5_paths = timed_phase(phase_k5, plan_k5, mesh_k5, batch_k5, planar)
         check(not KERNEL_FAILURES, "; ".join(KERNEL_FAILURES))
         if "--profile" in sys.argv[1:]:
             phase_profile(pm, batch_case, pm_mesh, planar, dev)
@@ -3206,6 +3482,7 @@ def main() -> int:
                     {"audit_planar": planar_paths["K3"]},
                     source="isdf_torch/csrc/grid_sweep.cu"),
         *bench_lines(bench_rec, k1_recs, k2_recs, k3_recs),
+        *k5_lines(k5_paths),
     ]
     print("phases: seconds " + json.dumps(PHASE_S), flush=True)
     smi = subprocess.run(

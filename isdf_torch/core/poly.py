@@ -33,22 +33,23 @@ def beta(s: torch.Tensor, order: int, n_coef: int = 6) -> torch.Tensor:
     """Basis β_order(s) with β·c = d^order pos / ds^order, shape (..., n_coef).
 
     Powers come from iterated products, not ``pow``, so the derivative of s⁰
-    stays finite at s = 0."""
-    f, idx = _beta_tables(min(order, n_coef), n_coef, s.dtype, s.device)
+    stays finite at s = 0.  The columns are stacked from the powers, not
+    gathered by index: an index's backward on the card is a sort-based
+    scatter."""
+    order = min(order, n_coef)
     pows = [torch.ones_like(s)]
     for _ in range(n_coef - 1):
         pows.append(pows[-1] * s)
-    P = torch.stack(pows, dim=-1)
-    return f * P[..., idx]
+    P = torch.stack([pows[k] for k in deriv_tables(n_coef)[1][order]], -1)
+    return _beta_fact(order, n_coef, s.dtype, s.device) * P
 
 
 @functools.lru_cache(maxsize=None)
-def _beta_tables(order: int, n_coef: int, dtype, device):
-    """Row ``order`` of deriv_tables on the device, copied there once (a
-    copy at each call would make the host wait for the device)."""
-    fact, powr = deriv_tables(n_coef)
-    return (torch.as_tensor(fact[order], dtype=dtype, device=device),
-            torch.as_tensor(powr[order], device=device))
+def _beta_fact(order: int, n_coef: int, dtype, device):
+    """Row ``order`` of deriv_tables' factors on the device, copied there
+    once (a copy at each call would make the host wait for the device)."""
+    return torch.as_tensor(deriv_tables(n_coef)[0][order], dtype=dtype,
+                           device=device)
 
 
 def take_pieces(x: torch.Tensor, idx: torch.Tensor, batched: bool):

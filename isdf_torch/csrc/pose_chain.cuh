@@ -4,6 +4,8 @@
 //
 //   load_tables     stages one scenario's piece tables in shared memory
 //                   (pallas_zoom._load_coeff_tables);
+//   piece_of,       the piece rule and the Horner chains of one axis, in any
+//   horner_*        float type (also K5, pieces.cu);
 //   pose_at         position and rotation at a time t, from the located
 //                   piece only (pallas_zoom._pvaj_rows +
 //                   fast_eval.pose_components), under either pose map: the
@@ -90,15 +92,44 @@ struct Tables {
     int N;
 };
 
+// the piece rule (fast_eval.piece_index): idx = #{n < N-1 : t > cum[n]},
+// the first n in [0, N-1) with cum[n] >= t, over N cumulative ends
+template <class T>
+__device__ __forceinline__ int piece_of(const T* cum, int N, T t) {
+    int lo = 0, hi = N - 1;
+    while (lo < hi) {
+        int mid = (lo + hi) >> 1;
+        if (t > cum[mid]) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+// Horner on one axis's position coefficients c0..c5 and on the velocity's
+// (c[k]·k) and the acceleration's (c[k]·k·(k−1)), folded as
+// pallas_zoom._load_coeff_tables and fast_eval.pvaj_tables fold them (c·1
+// is c)
+template <class T>
+__device__ __forceinline__ T horner_p(T c0, T c1, T c2, T c3, T c4, T c5,
+                                      T s) {
+    return ((((c5 * s + c4) * s + c3) * s + c2) * s + c1) * s + c0;
+}
+
+template <class T>
+__device__ __forceinline__ T horner_v(T c1, T c2, T c3, T c4, T c5, T s) {
+    return ((((c5 * T(5)) * s + c4 * T(4)) * s + c3 * T(3)) * s
+            + c2 * T(2)) * s + c1;
+}
+
+template <class T>
+__device__ __forceinline__ T horner_a(T c2, T c3, T c4, T c5, T s) {
+    return (((c5 * T(20)) * s + c4 * T(12)) * s + c3 * T(6)) * s
+           + c2 * T(2);
+}
+
 // the piece that holds time t and the local time in it → its coefficients
 __device__ __forceinline__ const float* locate(const Tables& tb, float t,
                                                float& s) {
-    // idx = #{n < N-1 : t > cum[n]}: first n in [0, N-1) with cum[n] >= t
-    int lo = 0, hi = tb.N - 1;
-    while (lo < hi) {
-        int mid = (lo + hi) >> 1;
-        if (t > tb.cum[mid]) lo = mid + 1; else hi = mid;
-    }
+    const int lo = piece_of(tb.cum, tb.N, t);
     const float2 sd = tb.sd[lo];
     s = fminf(fmaxf(t - sd.x, 0.f), sd.y);
     return tb.coef + lo * 3 * CSTRIDE;
@@ -108,7 +139,7 @@ __device__ __forceinline__ const float* locate(const Tables& tb, float t,
 __device__ __forceinline__ float horner_pos(const float* c, int ax, float s) {
     const float4 a = *reinterpret_cast<const float4*>(c + ax * CSTRIDE);
     const float2 e = *reinterpret_cast<const float2*>(c + ax * CSTRIDE + 4);
-    return ((((e.y * s + e.x) * s + a.w) * s + a.z) * s + a.y) * s + a.x;
+    return horner_p(a.x, a.y, a.z, a.w, e.x, e.y, s);
 }
 
 // SE(2) pose at time t (t already in [0, total]): the position Horner of the
@@ -140,13 +171,9 @@ __device__ __forceinline__ void pose_at(const Tables& tb, const FlatArgs& fp,
     for (int ax = 0; ax < 3; ++ax) {
         const float4 a = *reinterpret_cast<const float4*>(c + ax * CSTRIDE);
         const float2 e = *reinterpret_cast<const float2*>(c + ax * CSTRIDE + 4);
-        // Horner on pos (c0..c5), vel (c[k]·k) and acc (c[k]·k·(k−1)), as
-        // pallas_zoom._load_coeff_tables folds them (c·1 is c)
-        x[ax] = ((((e.y * s + e.x) * s + a.w) * s + a.z) * s + a.y) * s + a.x;
-        vel[ax] = ((((e.y * 5.f) * s + e.x * 4.f) * s + a.w * 3.f) * s
-                   + a.z * 2.f) * s + a.y;
-        acc[ax] = (((e.y * 20.f) * s + e.x * 12.f) * s + a.w * 6.f) * s
-                  + a.z * 2.f;
+        x[ax] = horner_p(a.x, a.y, a.z, a.w, e.x, e.y, s);
+        vel[ax] = horner_v(a.y, a.z, a.w, e.x, e.y, s);
+        acc[ax] = horner_a(a.z, a.w, e.x, e.y, s);
     }
     // quadrotor tilt (fast_eval.pose_components)
     const float cp_term = sqrtf(vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2] + fp.veps);

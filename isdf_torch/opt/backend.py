@@ -24,9 +24,12 @@ an "sp" group.  A batch's key runs under cuSOLVER's and cuBLAS's linear
 algebra, one trajectory's under PyTorch's default.
 
 Each evaluation is an ``obs`` span, ``back_end.eval``, whose ``graph``
-attribute says how it ran (``replay``, ``capture`` or ``eager``); its one
-child, ``eval.sweep``, is the sweep kernel's launch (eagerly, with the
-re-evaluation at t*).
+attribute says how it ran (``replay``, ``capture`` or ``eager``) and whose
+``pieces`` attribute whether the trajectory's state at t* ran K5
+(``kernel``; ``sweep/pieces.py``) or PyTorch operations (``torch``): the
+change of ``pieces.LAUNCHES`` across the evaluation, or for a replay across
+its graph's capture.  Its one child, ``eval.sweep``, is the sweep kernel's
+launch (eagerly, with the re-evaluation at t*).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from isdf_torch.opt import lbfgs, lmbm
 from isdf_torch.opt.attitude import attitude_penalty, pad_attitude_refs
 from isdf_torch.opt.graphs import GraphCache, capture, copy_in
 from isdf_torch.parallel.mesh import copy_to_sp, reduce_from_sp
+from isdf_torch.sweep import pieces
 from isdf_torch.sweep.sweep_sdf import (kernel_args, kernel_ok, launch,
                                         sweep_sdf_warm, sweep_value)
 from isdf_torch.utils import obs
@@ -265,11 +269,13 @@ class _Graphs:
     """G1 and G2 of one key, captured on the first call.  A call copies its
     inputs into G1's, replays G1, launches the kernel on G1's outputs,
     copies the kernel's into G2's inputs, replays G2 and clones its output,
-    so that no evaluation's answer aliases the next one's."""
+    so that no evaluation's answer aliases the next one's.  ``pieces``:
+    whether G2 captured K5's launches."""
 
     def __init__(self, split: SplitCost):
         self.split = split
         self.static = self.kout = self.g1 = self.g2 = None
+        self.pieces = False
 
     def __call__(self, x, t_warm, d: CostData):
         split = self.split
@@ -286,9 +292,11 @@ class _Graphs:
         self.kout = copy_in(self.kout, kout)
         if self.g2 is None:
             g2 = torch.cuda.CUDAGraph()
+            launches = pieces.LAUNCHES
             self.f_shape, self.g_shape, self.flat = capture(
                 g2, lambda: _flat(*split.remainder(sx, sd, self.kout)),
                 pool=self.g1.pool())
+            self.pieces = pieces.LAUNCHES > launches
             self.g2 = g2
         self.g2.replay()
         out = self.flat.clone()
@@ -360,9 +368,12 @@ def make_cost_fn(shape, params, w: BackendWeights, head, tail, N: int,
         lib = "cusolver" if entry is not None and x.dim() == 2 else None
         with obs.span("back_end.eval") as s, torch.enable_grad(), \
                 _linalg(lib):
+            launches = pieces.LAUNCHES
             mode, out = GRAPHS.run(entry, (x, t_warm, data),
                                    lambda: eager(x, t_warm))
-            s.set(graph=mode)
+            ran = (entry.graphs.pieces if mode == "replay"
+                   else pieces.LAUNCHES > launches)
+            s.set(graph=mode, pieces="kernel" if ran else "torch")
         return out
 
     def cost_and_grad(x, aux):

@@ -3,7 +3,9 @@
 
 Components travel as separate tensors shaped like the query times; the
 located piece is gathered (the TPU twin sums all pieces under masks because
-gathers scalarize there — on the GPU a gather is cheap).
+gathers scalarize there — on the GPU a gather is cheap, its backward is not:
+the swept SDF's value at t* reads the state through K5, sweep/pieces.py,
+whose plain forward is :func:`pvaj_tables`).
 """
 
 from __future__ import annotations
@@ -68,16 +70,19 @@ def pvaj_tables(starts, durs, cum, coeffs, t: torch.Tensor,
     return tuple(result)
 
 
+def piece_tables(traj, dtype):
+    """The tables :func:`pvaj_tables` reads, in dtype: (starts, durations,
+    cum, coeffs)."""
+    durations = traj.durations.to(dtype)
+    cum = torch.cumsum(durations, -1)
+    return cum - durations, durations, cum, traj.coeffs.to(dtype)
+
+
 def pvaj_components(traj, t: torch.Tensor, n_orders: int = 3):
     """pos/vel/acc[/jerk] components at global times t (for a batched traj,
     t (B, M)).  Returns ``n_orders`` 3-tuples of tensors shaped like t
     (padded with zeros to 4)."""
-    dtype = t.dtype
-    durations = traj.durations.to(dtype)
-    cum = torch.cumsum(durations, -1)
-    starts = cum - durations
-    result = list(pvaj_tables(starts, durations, cum, traj.coeffs.to(dtype),
-                              t, n_orders))
+    result = list(pvaj_tables(*piece_tables(traj, t.dtype), t, n_orders))
     zero = torch.zeros_like(t)
     while len(result) < 4:
         result.append((zero, zero, zero))
@@ -153,10 +158,15 @@ def rel_components(p_world, x3, R):
     )
 
 
+def rel_at_state(p_world, state, params):
+    """p_rel components of p_world in the body frame of the state (the pos,
+    vel, acc 3-tuples), under the pose map of ``params``."""
+    x3, R = pose_components(*state, params)
+    return rel_components(p_world, x3, R)
+
+
 def sdf_at_time_c(shape, traj, params, p_world, t):
     """Component-form body SDF at trajectory time(s); p_world is a 3-tuple
     broadcasting against t.  Differentiable in traj and p_world."""
-    pos, vel, acc, _ = pvaj_components(traj, t, n_orders=3)
-    x3, R = pose_components(pos, vel, acc, params)
-    prel = rel_components(p_world, x3, R)
-    return shape.sdf3_fn()(*prel)
+    state = pvaj_components(traj, t, n_orders=3)[:3]
+    return shape.sdf3_fn()(*rel_at_state(p_world, state, params))

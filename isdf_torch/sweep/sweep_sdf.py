@@ -40,9 +40,9 @@ import torch
 
 from isdf_torch.core import flatness as fl
 from isdf_torch.device import check_on, resolve_device
-from isdf_torch.sweep import fused_zoom, grid_zoom
+from isdf_torch.sweep import fused_zoom, grid_zoom, pieces
 from isdf_torch.sweep.fast_eval import (
-    pose_components, pvaj_components, rel_components, sdf_at_time_c)
+    pvaj_components, rel_at_state, rel_components, sdf_at_time_c)
 
 # sweeps (sweep_sdf / sweep_sdf_warm calls) that took the non-fused path
 # since the caller last set it to 0
@@ -236,19 +236,18 @@ def launch(shape, params, args, coarse_n, refine_rounds, warm_window,
 
 def sweep_value(shape, traj, params, p_eva, kout):
     """The warm sweep's last step: the differentiable swept SDF at the
-    kernel's constant (t*, d*, g*).  K1/K2: the body SDF re-evaluated at
-    t*.  K3: the linearisation of the body SDF at the epilogue point,
+    kernel's constant (t*, d*, g*), the trajectory's state at t* from
+    ``pieces.pvaj_at`` (K5 on the card).  K1/K2: the body SDF re-evaluated
+    at t*.  K3: the linearisation of the body SDF at the epilogue point,
     sdf(p_rel) ≈ d* + g*·(p_rel − p_rel*), with p_rel(traj, p, t*) the
     differentiable pose chain — how the reference consumes (sdf_value,
     gradp_rel) pairs (back_end_optimizer.hpp:619-627).  Its value equals
     d*; the voxel field is not read outside the kernel."""
     t_star, d0, g0 = kout
     pw = (p_eva[..., 0], p_eva[..., 1], p_eva[..., 2])
+    rx, ry, rz = rel_at_state(pw, pieces.pvaj_at(traj, t_star), params)
     if shape.grid is None:
-        return sdf_at_time_c(shape, traj, params, pw, t_star)
-    pos, vel, acc, _ = pvaj_components(traj, t_star, n_orders=3)
-    x3, R = pose_components(pos, vel, acc, params)
-    rx, ry, rz = rel_components(pw, x3, R)
+        return shape.sdf3_fn()(rx, ry, rz)
     return (d0 + g0[..., 0] * (rx - rx.detach())
             + g0[..., 1] * (ry - ry.detach())
             + g0[..., 2] * (rz - rz.detach()))
@@ -278,10 +277,9 @@ def _grad_prel(shape, traj, params, p_eva, t_star):
     """∂SDF/∂p_rel at the argmin pose (ref getGradPrelAtTimeStamp,
     sw_manager.hpp:566-572), by autograd of the body SDF."""
     with torch.no_grad():
-        pos, vel, acc, _ = pvaj_components(traj.detach(), t_star, n_orders=3)
-        x3, R = pose_components(pos, vel, acc, params)
-        prel = rel_components(
-            (p_eva[..., 0], p_eva[..., 1], p_eva[..., 2]), x3, R)
+        prel = rel_at_state(
+            (p_eva[..., 0], p_eva[..., 1], p_eva[..., 2]),
+            pvaj_components(traj.detach(), t_star, n_orders=3)[:3], params)
     return shape.grad(torch.stack(prel, dim=-1))
 
 

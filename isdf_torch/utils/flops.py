@@ -155,3 +155,26 @@ def k3_bound_ms(grid, P: int, N: int, coarse_n: int, rounds: int,
     nbytes = (4 * (grid.field.numel() + grid.pooled.numel())
               + B * (4 * (P * (3 + 1) + N * (2 + 18)) + 4 * P * 5))
     return bound_ms(ops, nbytes)
+
+
+# K5 operation count, per time, read off isdf_torch/csrc/pieces.cu the same
+# way.  Forward: the clip and local time (3) and the Horner chains of pos
+# (10), vel (12) and acc (10, their coefficients folded in the kernel) of 3
+# axes.  Backward: the clip again (3), s's powers (4), per axis the 18
+# coefficient rows (29) and the derivative in s (jerk 7, vel 12, acc 10,
+# their sum 6), the clip's split (3) and the per-piece sum of 20 values.
+OPS_K5_FORWARD = 3 + 3 * (10 + 12 + 10)
+OPS_K5_BACKWARD = 3 + 4 + 3 * (29 + 35) + 3 + 20
+
+
+def k5_bound_ms(B: int, M: int, N: int, itemsize: int = 4,
+                want_t: bool = False):
+    """K5's bound, forward and backward, for B trajectories of N pieces at
+    M times each: every time's t and nine components moved once each way
+    (t's gradient too where it is wanted), every trajectory's tables (start,
+    duration, end, 18 coefficients) read once a pass and their gradient (20
+    values a piece) written once; the per-tile partials stay in L2."""
+    ops = B * M * (OPS_K5_FORWARD + OPS_K5_BACKWARD)
+    nbytes = itemsize * (B * M * (10 + 10 + int(want_t))
+                         + B * N * (21 + 21 + 20))
+    return bound_ms(ops, nbytes)

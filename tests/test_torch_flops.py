@@ -48,3 +48,16 @@ def test_bound_takes_the_larger_time():
         (1.0, "operations", 67e9, 0))
     assert flops.bound_ms(0, 3.35e10) == pytest.approx(
         (10.0, "bytes", 0, 3.35e10))
+
+
+def test_k5_counts_of_the_table():
+    # demo6.plan's call (P = 4096 times, N = 13) and the batch cells'
+    # (B = 4096, P = 512, N = 4), float32, t's gradient not wanted
+    assert flops.k5_bound_ms(1, 4096, 13) == pytest.approx(
+        (9.877731343283582e-05, "bytes", 1314816, 330904))
+    assert flops.k5_bound_ms(4096, 512, 4) == pytest.approx(
+        (0.051294146865671644, "bytes", 673185792, 171835392))
+    # float64 doubles the bytes; t's gradient adds a value a time
+    assert flops.k5_bound_ms(1, 4096, 13, itemsize=8)[3] == 2 * 330904
+    assert flops.k5_bound_ms(1, 4096, 13, want_t=True)[3] == \
+        330904 + 4 * 4096
